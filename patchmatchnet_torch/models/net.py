@@ -1,0 +1,150 @@
+"""PatchmatchNet inference forward: FeatureNet -> PatchMatch stages 3, 2, 1
+-> Refinement -> photometric confidence (reference:
+`patchmatchnet_tpu/models/net.py`, `PatchmatchNet.__call__(train=False)`).
+
+`compute_dtype=torch.bfloat16` runs the feature and correlation payloads in
+bf16 while geometry, softmax, regression and the refinement residual stay
+f32, at the same cast points as the reference's `compute_dtype`. The f32
+mode (`compute_dtype=None`) turns TF32 off for its duration, so cuDNN runs
+its convolutions in full f32 as the reference does.
+"""
+
+from __future__ import annotations
+
+import contextlib
+from typing import Dict, Iterator, List, Optional, Tuple
+
+import torch
+import torch.nn as nn
+import torch.nn.functional as F
+
+from patchmatchnet_torch.models.feature import FeatureNet
+from patchmatchnet_torch.models.patchmatch import INITIAL_NUM_SAMPLES, STAGE_CONFIG, PatchMatch
+from patchmatchnet_torch.models.refinement import Refinement
+from patchmatchnet_torch.ops.resize import upsample_nearest_x2
+
+
+@contextlib.contextmanager
+def full_f32() -> Iterator[None]:
+    """Turn TF32 off for cuDNN convolutions and CUDA matmuls, restoring the
+    previous settings on exit."""
+    prev = (torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32)
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        yield
+    finally:
+        torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32 = prev
+
+
+class PatchmatchNet(nn.Module):
+    """The released model's cascade (stage settings in
+    `patchmatch.STAGE_CONFIG`); `compute_dtype` None runs f32, bf16 runs
+    bf16 payloads."""
+
+    def __init__(self, compute_dtype: Optional[torch.dtype] = None):
+        super().__init__()
+        self.compute_dtype = compute_dtype
+        self.feature = FeatureNet(dtype=compute_dtype)
+        for stage in (1, 2, 3):
+            self.add_module(f"patchmatch_{stage}", PatchMatch(stage, dtype=compute_dtype))
+        self.upsample_net = Refinement(dtype=compute_dtype)
+
+    def forward(
+        self,
+        images: torch.Tensor,
+        intrinsics: torch.Tensor,
+        extrinsics: torch.Tensor,
+        depth_min: torch.Tensor,
+        depth_max: torch.Tensor,
+        init_noise: Optional[torch.Tensor] = None,
+        generator: Optional[torch.Generator] = None,
+    ) -> Tuple[torch.Tensor, torch.Tensor, Dict[int, List[torch.Tensor]]]:
+        """Args:
+            images: [B, N, H, W, 3] f32, view 0 the reference; H, W
+                multiples of 8.
+            intrinsics: [B, N, 3, 3] at this resolution; extrinsics
+                [B, N, 4, 4] world-to-camera.
+            depth_min / depth_max: [B] scene depth range.
+            init_noise: [B, 48, H/8, W/8] uniform noise for the stage-3
+                initialization; drawn from `generator` when None.
+            generator: the torch.Generator for that draw.
+
+        Returns (refined depth [B, H, W], photometric confidence [B, H, W],
+        {stage: [per-iteration depths]}) with stage 0 the refined depth.
+        """
+        ctx = full_f32() if self.compute_dtype is None else contextlib.nullcontext()
+        with ctx:
+            return self._forward(images, intrinsics, extrinsics, depth_min,
+                                 depth_max, init_noise, generator)
+
+    def _forward(self, images, intrinsics, extrinsics, depth_min, depth_max,
+                 init_noise, generator):
+        b, n, h, w = images.shape[:4]
+        if h % 8 or w % 8:
+            raise ValueError(f"PatchmatchNet needs H, W multiples of 8 (got {h}x{w})")
+        dev = images.device
+        depth_min = depth_min.float().reshape(b)
+        depth_max = depth_max.float().reshape(b)
+        if init_noise is None:
+            if generator is None:
+                raise ValueError("pass init_noise or a torch.Generator")
+            init_noise = torch.rand((b, INITIAL_NUM_SAMPLES, h // 8, w // 8),
+                                    generator=generator, device=dev)
+
+        # Step 1: features of all views in one batch; NHWC buffers
+        # (channels_last) so that [B, N, h, w, C] views need no copy.
+        nchw = images.reshape(b * n, h, w, 3).permute(0, 3, 1, 2)
+        features = {
+            s: f.permute(0, 2, 3, 1).reshape(b, n, *f.shape[2:], f.shape[1])
+            for s, f in self.feature(nchw).items()
+        }
+
+        # Step 2: per-stage projection matrices (K scaled per level).
+        projs: Dict[int, torch.Tensor] = {}
+        scale = 0.125
+        for stage in (3, 2, 1):
+            k_scaled = intrinsics.float().clone()
+            k_scaled[:, :, :2] *= scale
+            proj = extrinsics.float().clone()
+            proj[:, :, :3, :4] = torch.matmul(k_scaled, extrinsics[:, :, :3, :4].float())
+            projs[stage] = proj
+            scale *= 2.0
+
+        depth = view_weights = score = None
+        depth_patchmatch: Dict[int, List[torch.Tensor]] = {}
+        for stage in (3, 2, 1):
+            feats = features[stage]
+            depths, score, view_weights = getattr(self, f"patchmatch_{stage}")(
+                ref_feature=feats[:, 0].contiguous(),
+                src_features=[feats[:, v].contiguous() for v in range(1, n)],
+                ref_proj=projs[stage][:, 0],
+                src_projs=[projs[stage][:, v] for v in range(1, n)],
+                depth_min=depth_min,
+                depth_max=depth_max,
+                depth=depth,
+                view_weights=view_weights,
+                init_noise=init_noise if stage == 3 else None,
+            )
+            depth_patchmatch[stage] = depths
+            depth = depths[-1]
+            if stage > 1:
+                depth = upsample_nearest_x2(depth[:, None])[:, 0]
+                view_weights = upsample_nearest_x2(view_weights)
+
+        # Step 3: refinement to full resolution.
+        depth = self.upsample_net(images[:, 0].permute(0, 3, 1, 2), depth,
+                                  depth_min, depth_max)
+        depth_patchmatch[0] = [depth]
+        return depth, self._confidence(score), depth_patchmatch
+
+    def _confidence(self, score: torch.Tensor) -> torch.Tensor:
+        """Probability mass of the 4 hypotheses around the regressed index of
+        the final stage-1 score [B, H/2, W/2, D] -> [B, H, W]."""
+        num_depth = STAGE_CONFIG[1].num_samples
+        padded = F.pad(score, (1, 2))
+        score_sum4 = sum(padded[..., i : i + num_depth] for i in range(4))
+        index = (torch.arange(num_depth, dtype=score.dtype, device=score.device) * score).sum(-1)
+        index = index.to(torch.int64).clamp(0, num_depth - 1)
+        confidence = torch.gather(score_sum4, -1, index[..., None])  # [B, H/2, W/2, 1]
+        return upsample_nearest_x2(confidence.permute(0, 3, 1, 2))[:, 0]

@@ -1,0 +1,22 @@
+"""Tensor ops of the port: plain PyTorch helpers and the three kernel
+wrappers (K1 `warp_group_corr`, K2 `eval_grid_score`, K3
+`neighbor_group_corr`), each with a `*_reference` plain version."""
+
+from patchmatchnet_torch.ops.eval_tail import eval_grid_score, eval_grid_score_reference
+from patchmatchnet_torch.ops.neighbor_similarity import (
+    neighbor_group_corr,
+    neighbor_group_corr_reference,
+)
+from patchmatchnet_torch.ops.warp_similarity import (
+    warp_group_corr,
+    warp_group_corr_reference,
+)
+
+__all__ = [
+    "eval_grid_score",
+    "eval_grid_score_reference",
+    "neighbor_group_corr",
+    "neighbor_group_corr_reference",
+    "warp_group_corr",
+    "warp_group_corr_reference",
+]

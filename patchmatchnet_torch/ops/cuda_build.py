@@ -1,0 +1,158 @@
+"""Build and load the hand-written CUDA kernels in `patchmatchnet_torch/csrc/`.
+
+All `csrc/*.cu` files compile with one `nvcc` call into one shared library
+with a plain C interface (no PyTorch headers, so the build takes seconds),
+loaded with ctypes. The build runs at first use, never at import, into
+`<repo>/build/kernels/<hash>/` where the hash covers the sources and the
+flags; a finished build is reused by later processes.
+
+Each kernel wrapper counts its launches here: `check_launch` adds one for
+every successful kernel launch and nothing else does, so a run can show
+which kernels its main path went through (`launch_counts`).
+"""
+
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+import threading
+import time
+from pathlib import Path
+from typing import Dict, Optional, Tuple
+
+import torch
+
+CSRC = Path(__file__).resolve().parents[1] / "csrc"
+BUILD_ROOT = Path(__file__).resolve().parents[2] / "build" / "kernels"
+NVCC_FLAGS = (
+    "-gencode", "arch=compute_90a,code=sm_90a",
+    "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
+)
+
+_P = ctypes.c_void_p
+_I = ctypes.c_int
+_F = ctypes.c_float
+# C entry points: name -> argtypes (all return an int cudaError_t)
+_SIGNATURES = {
+    # src, ref, mat12, depth, out, B, D, H, W, Hs, Ws, C, G, bf16, stream
+    "pmn_warp_group_corr": [_P, _P, _P, _P, _P] + [_I] * 9 + [_P],
+    # ref, gx, gy, out, B, K, H, W, C, G, bf16, stream
+    "pmn_neighbor_group_corr": [_P, _P, _P, _P] + [_I] * 7 + [_P],
+    # xnorm, cost, gx, gy, fw, out, B, K, H, W, D, inv_interval, cost_bf16, stream
+    "pmn_eval_grid_score": [_P] * 6 + [_I] * 5 + [_F, _I, _P],
+}
+
+_lock = threading.Lock()
+_lib: Optional[ctypes.CDLL] = None
+_build_seconds: Optional[float] = None
+_launches: Dict[str, int] = {}
+
+
+def _sources():
+    return sorted(p for p in CSRC.iterdir() if p.suffix in (".cu", ".cuh"))
+
+
+def _nvcc() -> str:
+    found = shutil.which("nvcc")
+    if found:
+        return found
+    cuda_home = os.environ.get("CUDA_HOME", "/usr/local/cuda")
+    path = os.path.join(cuda_home, "bin", "nvcc")
+    if not os.path.isfile(path):
+        raise RuntimeError("nvcc not found: the kernels need the CUDA toolkit")
+    return path
+
+
+def library_path() -> Path:
+    digest = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    for src in _sources():
+        digest.update(src.name.encode())
+        digest.update(src.read_bytes())
+    return BUILD_ROOT / digest.hexdigest()[:16] / "libpmn_kernels.so"
+
+
+def _build(out: Path) -> None:
+    out.parent.mkdir(parents=True, exist_ok=True)
+    tmp = out.with_name(f"{out.name}.{os.getpid()}.tmp")
+    cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp)]
+    cmd += [str(p) for p in _sources() if p.suffix == ".cu"]
+    start = time.perf_counter()
+    proc = subprocess.run(cmd, capture_output=True, text=True)
+    if proc.returncode != 0:
+        raise RuntimeError(f"nvcc failed ({proc.returncode}):\n{proc.stderr}")
+    (out.parent / "nvcc.log").write_text(proc.stdout + proc.stderr)
+    os.replace(tmp, out)  # atomic: a concurrent build never sees a partial file
+    global _build_seconds
+    _build_seconds = time.perf_counter() - start
+
+
+def kernel_library() -> ctypes.CDLL:
+    """The loaded kernel library, built on first use. Raises when CUDA or the
+    toolkit is missing: there is no fallback for CUDA tensors."""
+    global _lib
+    with _lock:
+        if _lib is not None:
+            return _lib
+        if not torch.cuda.is_available():
+            raise RuntimeError("CUDA is not available: the kernels need an NVIDIA GPU")
+        path = library_path()
+        if not path.is_file():
+            _build(path)
+        lib = ctypes.CDLL(str(path))
+        for name, argtypes in _SIGNATURES.items():
+            fn = getattr(lib, name)
+            fn.argtypes = argtypes
+            fn.restype = ctypes.c_int
+        lib.pmn_error_string.argtypes = [ctypes.c_int]
+        lib.pmn_error_string.restype = ctypes.c_char_p
+        _lib = lib
+        return lib
+
+
+def build_seconds() -> Optional[float]:
+    """Seconds the nvcc build took in this process (None if it was reused)."""
+    return _build_seconds
+
+
+def check_launch(name: str, rc: int) -> None:
+    """Raise on a nonzero cudaError_t from a launch; count it otherwise."""
+    if rc != 0:
+        err = kernel_library().pmn_error_string(rc).decode()
+        raise RuntimeError(f"{name} launch failed: cudaError {rc} ({err})")
+    _launches[name] = _launches.get(name, 0) + 1
+
+
+def launch_counts() -> Dict[str, int]:
+    return dict(_launches)
+
+
+def reset_launch_counts() -> None:
+    _launches.clear()
+
+
+def stream_handle(device: torch.device) -> int:
+    return torch.cuda.current_stream(device).cuda_stream
+
+
+def check_cuda_tensor(name: str, t: torch.Tensor, device: torch.device,
+                      dtypes: Tuple[torch.dtype, ...], shape: Tuple[int, ...]) -> None:
+    """Raise unless `t` is a contiguous tensor of `shape` and one of `dtypes`
+    on the CUDA `device`, 16-byte aligned (the kernels load 16-byte vectors)."""
+    if device.type != "cuda":
+        raise ValueError(
+            f"{name}: tensors must be on the CPU (plain version) or on a CUDA "
+            f"device (kernel), got {device}"
+        )
+    if t.device != device:
+        raise ValueError(f"{name} is on {t.device}, expected {device}")
+    if t.dtype not in dtypes:
+        raise TypeError(f"{name} has dtype {t.dtype}, expected one of {dtypes}")
+    if tuple(t.shape) != tuple(shape):
+        raise ValueError(f"{name} has shape {tuple(t.shape)}, expected {tuple(shape)}")
+    if not t.is_contiguous():
+        raise ValueError(f"{name} must be contiguous")
+    if t.data_ptr() % 16:
+        raise ValueError(f"{name} must be 16-byte aligned")

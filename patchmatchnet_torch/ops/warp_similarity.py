@@ -1,0 +1,95 @@
+"""K1: fused homography warp + bilinear sample + group correlation.
+
+Replaces `patchmatchnet_tpu/ops/pallas/windowed_similarity.py` `_kernel_proj`
+(API `windowed_group_similarity_proj`). The CUDA kernel is
+`csrc/group_corr.cu` (`pmn_warp_group_corr`); its source note says what
+bounds it on the card and how it is laid out.
+
+    sim[b, g, d, y, x] = mean_{c in group g} ref[b, y, x, c] *
+                         bilinear(src[b], warp(mat12[b], depth[b, d, y, x], x, y))[c]
+
+with zeros padding, align_corners=True and the pz <= 1e-3 push. Payloads
+(src, ref) may be bf16 or f32; every operation is f32.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from patchmatchnet_torch.ops import cuda_build
+from patchmatchnet_torch.ops.grid_sample import grid_sample_2d
+from patchmatchnet_torch.ops.warp import warp_coords
+
+# (channels, groups) pairs the kernel is instantiated for: stages 1, 2, 3
+SUPPORTED_CHANNELS_GROUPS = ((16, 4), (32, 8), (64, 8))
+_PAYLOAD_DTYPES = (torch.float32, torch.bfloat16)
+
+
+def group_mean_matrix(channels: int, groups: int, device=None) -> torch.Tensor:
+    """[C, G] f32 block matrix: column g averages the channels of group g."""
+    cg = channels // groups
+    gm = torch.zeros(channels, groups, dtype=torch.float32, device=device)
+    for g in range(groups):
+        gm[g * cg : (g + 1) * cg, g] = 1.0 / cg
+    return gm
+
+
+def warp_group_corr_reference(
+    src: torch.Tensor, mat12: torch.Tensor, depth: torch.Tensor,
+    ref: torch.Tensor, groups: int,
+) -> torch.Tensor:
+    """Plain PyTorch version: `F.grid_sample` + einsum with the group-mean
+    matrix. Same arguments and result as `warp_group_corr`."""
+    hs, ws, c = src.shape[1], src.shape[2], src.shape[3]
+    ix, iy = warp_coords(mat12, depth, hs, ws)
+    gx = ix / ((ws - 1) / 2.0) - 1.0
+    gy = iy / ((hs - 1) / 2.0) - 1.0
+    warped = grid_sample_2d(
+        src.float(), (gx, gy), align_corners=True, padding_mode="zeros"
+    )  # [B, D, H, W, C]
+    prod = warped * ref.float()[:, None]
+    gm = group_mean_matrix(c, groups, src.device)
+    return torch.einsum("bdhwc,cg->bgdhw", prod, gm)
+
+
+def warp_group_corr(
+    src: torch.Tensor, mat12: torch.Tensor, depth: torch.Tensor,
+    ref: torch.Tensor, groups: int,
+) -> torch.Tensor:
+    """Group-wise correlation of the reference feature with the source
+    feature warped at every depth hypothesis.
+
+    Args:
+        src: [B, Hs, Ws, C] source-view features (bf16 or f32).
+        mat12: [B, 12] f32 warp coefficients (`ops.warp.warp_proj_coeffs`).
+        depth: [B, D, H, W] f32 depth hypotheses on the reference grid.
+        ref: [B, H, W, C] reference features, same dtype as `src`.
+        groups: G, dividing C.
+    Returns:
+        [B, G, D, H, W] f32 similarity volume.
+
+    CPU tensors run the plain version; CUDA tensors launch the kernel, and
+    anything the kernel does not take raises.
+    """
+    if src.device.type == "cpu":
+        return warp_group_corr_reference(src, mat12, depth, ref, groups)
+    b, hs, ws, c = src.shape
+    _, d, h, w = depth.shape
+    if (c, groups) not in SUPPORTED_CHANNELS_GROUPS:
+        raise ValueError(f"warp_group_corr: no kernel for C={c}, G={groups}")
+    dev = src.device
+    check = cuda_build.check_cuda_tensor
+    check("src", src, dev, _PAYLOAD_DTYPES, (b, hs, ws, c))
+    check("ref", ref, dev, (src.dtype,), (b, h, w, c))
+    check("mat12", mat12, dev, (torch.float32,), (b, 12))
+    check("depth", depth, dev, (torch.float32,), (b, d, h, w))
+    out = torch.empty((b, groups, d, h, w), dtype=torch.float32, device=dev)
+    lib = cuda_build.kernel_library()
+    with torch.cuda.device(dev):
+        rc = lib.pmn_warp_group_corr(
+            src.data_ptr(), ref.data_ptr(), mat12.data_ptr(), depth.data_ptr(),
+            out.data_ptr(), b, d, h, w, hs, ws, c, groups,
+            int(src.dtype == torch.bfloat16), cuda_build.stream_handle(dev),
+        )
+    cuda_build.check_launch("warp_group_corr", rc)
+    return out

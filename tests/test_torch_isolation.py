@@ -1,0 +1,164 @@
+"""The port stands alone: it imports no JAX, its wrappers take the plain
+versions only for CPU tensors, and asking for CUDA without CUDA raises."""
+
+import ast
+import os
+import shutil
+import subprocess
+import sys
+
+import pytest
+import torch
+
+from patchmatchnet_torch.infer import DepthEstimator
+from patchmatchnet_torch.models import PatchmatchNet
+from patchmatchnet_torch.ops import (
+    eval_grid_score,
+    neighbor_group_corr,
+    warp_group_corr,
+)
+from patchmatchnet_torch.ops import cuda_build
+
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+
+
+def _run(code, cwd=REPO):
+    env = {k: v for k, v in os.environ.items() if not k.startswith("PYTHONPATH")}
+    env["PYTHONPATH"] = REPO
+    return subprocess.run([sys.executable, "-c", code], cwd=cwd, env=env,
+                          capture_output=True, text=True, timeout=120)
+
+
+SCRIPTS = ["chip_smoke.py", os.path.join("tools", "dev", "profile_torch_main.py")]
+FORBIDDEN = ("jax", "jaxlib", "flax", "patchmatchnet_tpu", "scene_utils", "tests")
+
+
+def _script_imports(path):
+    """Every absolute module a script imports, at any depth of its code."""
+    with open(os.path.join(REPO, path)) as f:
+        tree = ast.parse(f.read())
+    names = set()
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            names |= {alias.name for alias in node.names}
+        elif isinstance(node, ast.ImportFrom) and node.level == 0:
+            names.add(node.module)
+    return names
+
+
+def test_port_imports_no_jax():
+    """Neither the port nor the scripts that drive it (chip_smoke.py and the
+    profiling tool, including imports inside their functions) name or load
+    a module of JAX, flax or the JAX package."""
+    named = set().union(*(_script_imports(p) for p in SCRIPTS))
+    assert not sorted(m for m in named if m.split(".")[0] in FORBIDDEN)
+    modules = sorted(m for m in named if m.split(".")[0] == "patchmatchnet_torch")
+    proc = _run(
+        "import importlib, sys\n"
+        "import patchmatchnet_torch, patchmatchnet_torch.compat, patchmatchnet_torch.ops\n"
+        "import patchmatchnet_torch.models, patchmatchnet_torch.infer, patchmatchnet_torch.data\n"
+        f"for m in {modules!r}:\n"
+        "    importlib.import_module(m)\n"
+        "import chip_smoke\n"
+        f"bad = sorted(m for m in sys.modules if m.split('.')[0] in {FORBIDDEN!r})\n"
+        "assert not bad, bad\n"
+        "print('clean')\n"
+    )
+    assert proc.returncode == 0, proc.stderr
+    assert "clean" in proc.stdout
+
+
+def test_wrappers_return_plain_version_on_cpu():
+    """On CPU tensors each wrapper is its plain version, exactly, and no
+    launch is counted."""
+    from patchmatchnet_torch.ops import (
+        eval_grid_score_reference,
+        neighbor_group_corr_reference,
+        warp_group_corr_reference,
+    )
+    from patchmatchnet_torch.ops.warp import warp_proj_coeffs
+
+    gen = torch.Generator().manual_seed(0)
+    h, w, c, g, d = 8, 12, 16, 4, 3
+    src, ref = torch.randn((2, 1, h, w, c), generator=gen)
+    proj = torch.eye(4).repeat(2, 1, 1)
+    proj[:, :3, :3] *= 10.0
+    proj[1, 0, 3] = 2.0
+    mat12 = warp_proj_coeffs(proj[1:], proj[:1])
+    depth = 4.0 + torch.rand((1, d, h, w), generator=gen)
+    grid = tuple(torch.rand((1, 9, h, w), generator=gen) * 2 - 1 for _ in range(2))
+    x_norm = torch.rand((1, h, w, d), generator=gen)
+    cost = torch.randn((1, h, w, d), generator=gen)
+    fw = torch.rand((1, 9, h, w), generator=gen)
+    before = cuda_build.launch_counts()
+    assert torch.equal(warp_group_corr(src, mat12, depth, ref, g),
+                       warp_group_corr_reference(src, mat12, depth, ref, g))
+    assert torch.equal(neighbor_group_corr(ref, grid, g),
+                       neighbor_group_corr_reference(ref, grid, g))
+    assert torch.equal(eval_grid_score(x_norm, cost, grid, fw, 0.0125),
+                       eval_grid_score_reference(x_norm, cost, grid, fw, 0.0125))
+    assert cuda_build.launch_counts() == before
+
+
+def _no_cuda():
+    if torch.cuda.is_available():
+        pytest.skip("checks behaviour without CUDA; this machine has CUDA")
+
+
+def test_cuda_request_without_cuda_raises():
+    _no_cuda()
+    with pytest.raises(RuntimeError, match="CUDA"):
+        cuda_build.kernel_library()
+    with pytest.raises(RuntimeError, match="CUDA"):
+        DepthEstimator(PatchmatchNet(), device="cuda")
+
+
+@pytest.mark.parametrize("kernel", ["warp", "neighbor", "eval"])
+def test_wrappers_refuse_non_cpu_non_cuda_tensors(kernel):
+    """A tensor that is neither on the CPU nor on a CUDA device never
+    reaches a plain version: the wrapper raises before any launch."""
+    meta = {"device": "meta"}
+    f = torch.empty((1, 8, 12, 16), **meta)
+    grid = (torch.empty((1, 9, 8, 12), **meta), torch.empty((1, 9, 8, 12), **meta))
+    before = cuda_build.launch_counts()
+    with pytest.raises(ValueError, match="CPU .* or on a CUDA"):
+        if kernel == "warp":
+            warp_group_corr(f, torch.empty((1, 12), **meta),
+                            torch.empty((1, 4, 8, 12), **meta), f, 4)
+        elif kernel == "neighbor":
+            neighbor_group_corr(f, grid, 4)
+        else:
+            eval_grid_score(torch.empty((1, 8, 12, 4), **meta),
+                            torch.empty((1, 8, 12, 4), **meta), grid,
+                            torch.empty((1, 9, 8, 12), **meta), 0.025)
+    assert cuda_build.launch_counts() == before
+
+
+def test_chip_smoke_fails_without_cuda_or_checkout(tmp_path):
+    """chip_smoke.py exits non-zero and prints no result line without CUDA,
+    and when it is alone in a directory."""
+    _no_cuda()
+    proc = subprocess.run([sys.executable, os.path.join(REPO, "chip_smoke.py")], cwd=REPO,
+                          capture_output=True, text=True, timeout=120)
+    assert proc.returncode != 0 and '"ok"' not in proc.stdout
+    shutil.copy(os.path.join(REPO, "chip_smoke.py"), tmp_path / "chip_smoke.py")
+    proc = subprocess.run([sys.executable, "chip_smoke.py"], cwd=tmp_path,
+                          capture_output=True, text=True, timeout=120)
+    assert proc.returncode != 0 and '"ok"' not in proc.stdout
+
+
+def test_f32_forward_turns_tf32_off_and_restores_it():
+    """The f32 model runs with TF32 off (cuDNN convs and CUDA matmuls) and
+    leaves the global flags as it found them."""
+    from patchmatchnet_torch.models.net import full_f32
+
+    prev = (torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32)
+    torch.backends.cudnn.allow_tf32 = True
+    torch.backends.cuda.matmul.allow_tf32 = True
+    try:
+        with full_f32():
+            assert not torch.backends.cudnn.allow_tf32
+            assert not torch.backends.cuda.matmul.allow_tf32
+        assert torch.backends.cudnn.allow_tf32 and torch.backends.cuda.matmul.allow_tf32
+    finally:
+        torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32 = prev

@@ -1,0 +1,111 @@
+"""The port's CUDA kernels against their plain versions on the card.
+
+Marked `cuda`: every test skips without a CUDA device (decided inside the
+fixture). On a machine with a GPU:
+    python -m pytest tests/test_torch_kernels_cuda.py -q -m cuda --noconftest
+This file imports no JAX.
+"""
+
+import numpy as np
+import pytest
+import torch
+
+from patchmatchnet_torch import ops
+from patchmatchnet_torch.models.patchmatch import build_offset_grid, evaluation_offsets
+from patchmatchnet_torch.ops import cuda_build
+from patchmatchnet_torch.ops.warp import warp_proj_coeffs
+
+pytestmark = pytest.mark.cuda
+
+
+@pytest.fixture
+def device():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    return torch.device("cuda", 0)
+
+
+def _case(device, c, d, h, w, dtype, seed=0):
+    gen = torch.Generator(device=device).manual_seed(seed)
+    f = 1.1 * max(h, w)
+    k = torch.tensor([[f, 0, w / 2.0], [0, f, h / 2.0], [0, 0, 1]])
+    projs = []
+    for tx in (0.0, 0.35):
+        p = torch.eye(4)
+        p[:3, :4] = k @ torch.tensor([[1.0, 0, 0, tx], [0, 1, 0, 0], [0, 0, 1, 0]])
+        projs.append(p)
+    mat12 = warp_proj_coeffs(projs[1][None], projs[0][None]).to(device).contiguous()
+    src = torch.randn((1, h, w, c), generator=gen, device=device).to(dtype)
+    ref = torch.randn((1, h, w, c), generator=gen, device=device).to(dtype)
+    depth = 4.0 + 4.0 * torch.rand((1, d, h, w), generator=gen, device=device)
+    depth[:, 0, :2] = -1.0  # behind the source camera
+    offset = torch.randn((1, h, w, 18), generator=gen, device=device) * 3.0
+    grid = build_offset_grid(offset, evaluation_offsets(2), h, w)
+    return src, ref, mat12, depth, grid, gen
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("c,g", [(16, 4), (32, 8), (64, 8)])
+def test_warp_and_neighbor_kernels_match_plain(device, dtype, c, g):
+    src, ref, mat12, depth, grid, _ = _case(device, c, 6, 20, 36, dtype)
+    before = cuda_build.launch_counts()
+    got = ops.warp_group_corr(src, mat12, depth, ref, g)
+    want = ops.warp_group_corr_reference(src, mat12, depth, ref, g)
+    torch.testing.assert_close(got, want, rtol=0, atol=2e-4)
+    got = ops.neighbor_group_corr(ref, grid, g)
+    want = ops.neighbor_group_corr_reference(ref, grid, g)
+    torch.testing.assert_close(got, want, rtol=0, atol=2e-5)
+    after = cuda_build.launch_counts()
+    for name in ("warp_group_corr", "neighbor_group_corr"):
+        assert after.get(name, 0) == before.get(name, 0) + 1
+
+
+@pytest.mark.parametrize("cost_dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("d", [8, 12, 64])
+def test_eval_grid_score_kernel_matches_plain(device, cost_dtype, d):
+    *_, grid, gen = _case(device, 16, 1, 20, 36, torch.float32, seed=1)
+    x_norm = torch.rand((1, 20, 36, d), generator=gen, device=device)
+    cost = torch.randn((1, 20, 36, d), generator=gen, device=device).to(cost_dtype)
+    fw = torch.rand((1, 9, 20, 36), generator=gen, device=device) * 0.9 + 0.1
+    got = ops.eval_grid_score(x_norm, cost, grid, fw, 0.025)
+    want = ops.eval_grid_score_reference(x_norm, cost, grid, fw, 0.025)
+    torch.testing.assert_close(got, want, rtol=1e-4, atol=1e-4)
+
+
+def test_wrappers_reject_what_the_kernels_do_not_take(device):
+    src, ref, mat12, depth, grid, _ = _case(device, 16, 4, 8, 12, torch.float32)
+    with pytest.raises(ValueError, match="contiguous"):
+        ops.warp_group_corr(src, mat12, depth.transpose(2, 3).contiguous().transpose(2, 3),
+                            ref, 4)
+    with pytest.raises(TypeError):
+        ops.warp_group_corr(src, mat12, depth, ref.to(torch.bfloat16), 4)
+    with pytest.raises(ValueError, match="no kernel"):
+        ops.neighbor_group_corr(ref, grid, 2)
+
+
+def test_model_f32_on_card_matches_cpu(device):
+    """The f32 forward with kernels on the card vs plain versions on the CPU
+    (random weights from a seed, 64x80, 3 views)."""
+    from patchmatchnet_torch.models import PatchmatchNet
+
+    torch.manual_seed(0)
+    model = PatchmatchNet().eval()
+    for p in model.parameters():
+        p.data.uniform_(-0.2, 0.2)
+    rng = np.random.default_rng(0)
+    h, w, n = 64, 80, 3
+    images = torch.from_numpy(rng.random((1, n, h, w, 3), dtype=np.float32))
+    k = torch.tensor([[80.0, 0, w / 2], [0, 80.0, h / 2], [0, 0, 1]])
+    intr = k.expand(1, n, 3, 3).contiguous()
+    extr = torch.eye(4).repeat(1, n, 1, 1)
+    extr[0, :, 0, 3] = torch.tensor([0.0, 0.3, -0.3])
+    dmin, dmax = torch.tensor([4.0]), torch.tensor([10.0])
+    noise = torch.rand((1, 48, h // 8, w // 8), generator=torch.Generator().manual_seed(1))
+    with torch.inference_mode():
+        cpu = model(images, intr, extr, dmin, dmax, init_noise=noise)[0]
+        gpu = model.to(device)(images.to(device), intr.to(device), extr.to(device),
+                               dmin.to(device), dmax.to(device),
+                               init_noise=noise.to(device))[0].cpu()
+    assert torch.isfinite(gpu).all()
+    diff = (gpu - cpu).abs() / 6.0
+    assert diff.mean() < 2e-4 and diff.median() < 1e-5, (diff.mean(), diff.median())
