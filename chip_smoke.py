@@ -16,6 +16,24 @@ result line:
    bf16 DepthEstimator -> save_depth_maps; checks finite maps, the GT
    error and the per-request kernel launch counts; reports ms per map,
    MPix/s and peak device memory.
+6. backward-kernel parity: K4 and K5 against their plain versions
+   (autograd through the plain forwards) at the training stage shapes of
+   640x512, B=2, bf16 and f32 payloads; errors relative to the largest
+   gradient entry; kernel and plain backward times per launch and per
+   train step.
+7. f32 train-step parity: one f32 train step (kernels on, TF32 off) on a
+   64x80, 3-view plane batch against the same step on the CPU (plain
+   versions): loss and per-leaf gradient cosine, and the step's launches.
+8. training path: bf16 at 640x512, N=5, B=2 on a 12-view synthetic plane
+   scene with depth_gt, warm-started from params_000007: one warm-up step
+   and 6 timed train steps (finite losses, launches per step K1 20 / K4 20
+   / K3 3 / K5 3 / K2 0, ms per step, samples/s, peak memory; a
+   torch.profiler trace of 2 more steps: launches, device-busy time and
+   device time by kernel kind per step); a
+   checkpoint after the last timed step, resumed into a fresh model and
+   optimizer, reproduces the next step's loss to 1e-5; then
+   `run_training` for one epoch (6 steps and validation) through the
+   driver, with its launch counts.
 
 The last line is {"ok": true, "device": {...}}; the line before it holds
 the per-kernel JSON summary.
@@ -24,6 +42,7 @@ the per-kernel JSON summary.
 from __future__ import annotations
 
 import json
+import math
 import os
 import shutil
 import statistics
@@ -37,6 +56,13 @@ CKPT = os.path.join(REPO, "checkpoints", "params_000007.msgpack")
 MAIN_H, MAIN_W, MAIN_VIEWS, REQUESTS = 864, 1152, 5, 5
 # per-forward launches of each kernel on the bf16 main path
 EXPECTED_PER_FORWARD = {"warp_group_corr": 20, "eval_grid_score": 5, "neighbor_group_corr": 3}
+# training geometry (the JAX trainer's DTU configuration)
+TRAIN_H, TRAIN_W, TRAIN_VIEWS, TRAIN_BATCH, TRAIN_SCENE_VIEWS = 512, 640, 5, 2, 12
+TIMED_STEPS = 6
+# per-train-step launches at N=5 (K2 has no backward; the training tail is plain)
+EXPECTED_PER_STEP = {"warp_group_corr": 20, "warp_group_corr_backward": 20,
+                     "neighbor_group_corr": 3, "neighbor_group_corr_backward": 3,
+                     "eval_grid_score": 0}
 KERNEL_INFO = {
     "warp_group_corr": ("patchmatchnet_torch/csrc/group_corr.cu",
                         "patchmatchnet_tpu/ops/pallas/windowed_similarity.py:419"),
@@ -44,7 +70,13 @@ KERNEL_INFO = {
                         "patchmatchnet_tpu/ops/pallas/eval_tail.py:112"),
     "neighbor_group_corr": ("patchmatchnet_torch/csrc/group_corr.cu",
                             "patchmatchnet_tpu/ops/pallas/similarity_kernel.py:88"),
+    "warp_group_corr_backward": ("patchmatchnet_torch/csrc/group_corr_bwd.cu",
+                                 "patchmatchnet_tpu/ops/pallas/windowed_similarity.py:743"),
+    "neighbor_group_corr_backward": ("patchmatchnet_torch/csrc/group_corr_bwd.cu",
+                                     "patchmatchnet_tpu/ops/pallas/similarity_kernel.py:187"),
 }
+INFERENCE_KERNELS = ("warp_group_corr", "eval_grid_score", "neighbor_group_corr")
+BACKWARD_KERNELS = ("warp_group_corr_backward", "neighbor_group_corr_backward")
 # Kernel vs plain version: the same f32 math in another summation order.
 # K1/K3: the plain version goes through F.grid_sample's normalized
 # coordinates, which moves a sample by up to ~1 ulp of its pixel coordinate
@@ -94,9 +126,14 @@ def stage_cameras(h: int, w: int, scale: float):
     """Reference and source projections [1, 2, 4, 4] of the synthetic-scene
     rig (identity rotations, x baseline 0.35) at 1/scale of the main
     resolution."""
+    return rig_cameras(h, w, 1.1 * max(MAIN_H, MAIN_W) / scale)
+
+
+def rig_cameras(h: int, w: int, f: float):
+    """Projections [1, 2, 4, 4] of the rig at focal length `f` for an h x w
+    image."""
     import torch
 
-    f = 1.1 * max(MAIN_H, MAIN_W) / scale
     k = torch.tensor([[f, 0, w / 2.0], [0, f, h / 2.0], [0, 0, 1]])
     projs = []
     for tx in (0.0, 0.35):
@@ -126,7 +163,8 @@ def kernel_parity(device):
         (2, 32, 8, 4, [(16, 8)]),
         (1, 16, 4, 2, [(8, 4)]),
     ]
-    summary = {name: {"max_abs_err": 0.0, "ms": 0.0, "plain_ms": 0.0} for name in KERNEL_INFO}
+    summary = {name: {"max_abs_err": 0.0, "ms": 0.0, "plain_ms": 0.0}
+               for name in INFERENCE_KERNELS}
 
     def record(name, label, got, want, launches, fn, plain_fn, interval):
         err = (got - want).abs()
@@ -296,6 +334,337 @@ def main_path(device, state_dict):
     return counts
 
 
+def backward_tol(dtype):
+    """(max abs, mean abs) bound of backward kernel vs plain version,
+    relative to the largest plain gradient entry. Both sum in f32 in another
+    order (atomics on both sides for the source gradient, so neither is
+    deterministic), and the plain warp reaches its coordinates through
+    F.grid_sample's normalize/unnormalize, ~1 ulp away (as for K1); bf16
+    results are then rounded to bf16, 2^-9 of an entry, and a different
+    f32 sum can round to the neighbouring bf16 value."""
+    return (2e-3, 2e-5) if dtype.itemsize == 4 else (8e-3, 5e-4)
+
+
+def backward_parity(device):
+    """Phase 6: K4 and K5 vs autograd through their plain forwards at the
+    640x512 B=2 training stage shapes. Returns {kernel: {"max_abs_err",
+    "ms", "plain_ms"}} with times summed over a train step's launches
+    (bf16 payloads). The bounds are relative to the largest entry;
+    max_abs_err is the absolute error. "ms" is the wrapper's time, as the
+    train step calls it: zeroing the f32 gradient buffers, the launch, and
+    the casts to the payload dtype."""
+    import torch
+
+    from patchmatchnet_torch import ops
+    from patchmatchnet_torch.models.patchmatch import (
+        STAGE_CONFIG,
+        build_offset_grid,
+        evaluation_offsets,
+    )
+    from patchmatchnet_torch.ops.warp import warp_proj_coeffs
+
+    gen = torch.Generator(device=device).manual_seed(1)
+    b = TRAIN_BATCH
+    # (stage, C, G, scale, [(D, K4 launches per train step at N=5)])
+    stages = [(3, 64, 8, 8, [(64, 4), (32, 4)]), (2, 32, 8, 4, [(16, 8)]),
+              (1, 16, 4, 2, [(8, 4)])]
+    summary = {name: {"max_abs_err": 0.0, "ms": 0.0, "plain_ms": 0.0}
+               for name in BACKWARD_KERNELS}
+
+    def check(name, label, got, want, dtype):
+        tol_max, tol_mean = backward_tol(dtype)
+        for g, w in zip(got, want):
+            scale = w.float().abs().max().item()
+            err = (g.float() - w.float()).abs()
+            abs_max = err.max().item()
+            rel_max, rel_mean = abs_max / scale, err.mean().item() / scale
+            print(f"{name} {label}: max_abs {abs_max:.3e} max_abs/max {rel_max:.3e} "
+                  f"mean_abs/max {rel_mean:.3e} (largest entry {scale:.3e})", flush=True)
+            if rel_max > tol_max or rel_mean > tol_mean:
+                fail(f"{name} {label} exceeds max {tol_max} / mean {tol_mean} of the largest entry")
+            summary[name]["max_abs_err"] = max(summary[name]["max_abs_err"], abs_max)
+
+    def timed(name, label, launches, kernel_fn, plain_fn):
+        ms, plain_ms = time_ms(kernel_fn), time_ms(plain_fn)
+        summary[name]["ms"] += ms * launches
+        summary[name]["plain_ms"] += plain_ms * launches
+        print(f"{name} {label}: wrapper {ms:.4f} ms plain {plain_ms:.4f} ms "
+              f"(x{launches}/train step)", flush=True)
+
+    for stage, c, g, scale, depths in stages:
+        h, w = TRAIN_H // scale, TRAIN_W // scale
+        cfg = STAGE_CONFIG[stage]
+        f = 1.1 * max(TRAIN_H, TRAIN_W) / scale
+        projs = rig_cameras(h, w, f).to(device)
+        mat12 = warp_proj_coeffs(projs[:, 1], projs[:, 0]).expand(b, 12).contiguous()
+        offset = torch.randn((b, h, w, 18), generator=gen, device=device) * 2.0
+        grid = build_offset_grid(offset, evaluation_offsets(cfg.propagation_range), h, w)
+        feats = torch.randn((2, b, h, w, c), generator=gen, device=device)
+        for dtype in (torch.bfloat16, torch.float32):
+            tag = "bf16" if dtype == torch.bfloat16 else "f32"
+            ref, src = feats[0].to(dtype), feats[1].to(dtype)
+            for d, launches in depths:
+                depth = 4.8 + 3.0 * torch.rand((b, d, h, w), generator=gen, device=device)
+                depth[:, -1, :4] = -1.0  # behind the source camera
+                dout = torch.randn((b, g, d, h, w), generator=gen, device=device)
+                args = (src, mat12, depth, ref, g, dout)
+                label = f"stage{stage} C{c} G{g} D{d} B{b} {h}x{w} {tag}"
+                check("warp_group_corr_backward", label, ops.warp_group_corr_backward(*args),
+                      ops.warp_group_corr_backward_reference(*args), dtype)
+                if dtype == torch.bfloat16:
+                    s_ = src.detach().requires_grad_(True)
+                    r_ = ref.detach().requires_grad_(True)
+                    out = ops.warp_group_corr_reference(s_, mat12, depth, r_, g)
+                    timed("warp_group_corr_backward", label, launches,
+                          lambda: ops.warp_group_corr_backward(*args),
+                          lambda: torch.autograd.grad(out, (s_, r_), dout, retain_graph=True))
+            dout = torch.randn((b, g, 9, h, w), generator=gen, device=device)
+            args = (ref, grid, g, dout)
+            label = f"stage{stage} C{c} G{g} K9 B{b} {h}x{w} {tag}"
+            check("neighbor_group_corr_backward", label, ops.neighbor_group_corr_backward(*args),
+                  ops.neighbor_group_corr_backward_reference(*args), dtype)
+            if dtype == torch.bfloat16:
+                gx, gy = (t.detach().requires_grad_(True) for t in grid)
+                out = ops.neighbor_group_corr_reference(ref, (gx, gy), g)
+                timed("neighbor_group_corr_backward", label, 1,
+                      lambda: ops.neighbor_group_corr_backward(*args),
+                      lambda: torch.autograd.grad(out, (gx, gy), dout, retain_graph=True))
+    return summary
+
+
+def _cosine(a, b) -> float:
+    a, b = a.double().ravel(), b.double().ravel()
+    return float(a @ b / (a.norm() * b.norm() + 1e-30))
+
+
+def train_step_parity(device, state_dict):
+    """Phase 7: one f32 train step on the card (kernels on, TF32 off) vs the
+    same step on the CPU (plain versions), 64x80, N=3, B=2 plane batch."""
+    import torch
+
+    from patchmatchnet_torch.data import plane_batch
+    from patchmatchnet_torch.models import PatchmatchNet
+    from patchmatchnet_torch.ops import cuda_build
+    from patchmatchnet_torch.train import batch_to_device, make_optimizer, train_step
+
+    batch = plane_batch(2, 3, 64, 80)
+    results = {}
+    for dev in (torch.device("cpu"), device):
+        model = PatchmatchNet().to(dev)
+        model.load_state_dict(state_dict, strict=True)
+        cuda_build.reset_launch_counts()
+        metrics, _ = train_step(model, make_optimizer(model.parameters(), 0.0),
+                                batch_to_device(batch, dev), 0.0,
+                                torch.from_numpy(batch["noise"]).to(dev), with_grads=True)
+        results[dev.type] = (float(metrics["loss"]),
+                             {k: v.cpu() for k, v in metrics["grads"].items()},
+                             cuda_build.launch_counts())
+    (cpu_loss, cpu_grads, _), (gpu_loss, gpu_grads, counts) = results["cpu"], results["cuda"]
+    rel = abs(gpu_loss - cpu_loss) / abs(cpu_loss)
+    top = max(float(g.norm()) for g in cpu_grads.values())
+    cos = {k: _cosine(cpu_grads[k], gpu_grads[k]) for k, g in cpu_grads.items()
+           if float(g.norm()) >= 1e-3 * top}
+    worst = min(cos, key=cos.get)
+    print(f"f32 train step 64x80 N=3 B=2: loss card {gpu_loss:.7f} cpu {cpu_loss:.7f} "
+          f"rel {rel:.3e}; {len(cos)} gradient leaves above 1e-3 of the largest norm, "
+          f"min cosine {cos[worst]:.6f} ({worst}), median "
+          f"{statistics.median(cos.values()):.6f}; launches {counts}", flush=True)
+    if not (rel < 1e-4 and cos[worst] > 0.999):
+        fail("f32 train step on the card disagrees with the CPU step "
+             "(bounds: loss 1e-4 relative, cosine 0.999)")
+    want = {"warp_group_corr": 10, "warp_group_corr_backward": 10, "neighbor_group_corr": 3,
+            "neighbor_group_corr_backward": 3}
+    if any(counts.get(k, 0) != v for k, v in want.items()) or counts.get("eval_grid_score"):
+        fail(f"f32 train step launches {counts}, expected {want} and no eval_grid_score")
+
+
+def kernel_kind(name: str) -> str:
+    """Coarse kind of a device kernel, by its name."""
+    low = name.lower()
+    if "pmn::" in name:
+        return "hand kernels (K1-K5)"
+    if any(k in low for k in ("conv", "cudnn", "xmma", "cutlass", "wgrad", "dgrad", "nvjet",
+                              "gemm")):
+        return "convolutions and channel-map GEMMs"
+    if "grid_sampler" in low:
+        return "grid_sample"
+    if "reduce" in low:
+        return "reductions"
+    if "elementwise" in low:
+        return "element-wise"
+    return "other"
+
+
+def trace_steps(step, steps: int, path: str) -> None:
+    """Profile `steps` calls of step() and print launches, device-busy time,
+    idle share of the traced span and device time by kernel kind, per call."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(steps):
+            step()
+        torch.cuda.synchronize()
+    prof.export_chrome_trace(path)
+    with open(path) as f:
+        events = [(e["cat"], e["name"], float(e["ts"]), float(e["dur"]))
+                  for e in json.load(f).get("traceEvents", [])
+                  if e.get("ph") == "X" and e.get("cat") in ("kernel", "gpu_memcpy", "gpu_memset")]
+    if not events:
+        print("trace: no device events recorded", flush=True)
+        return
+    busy, cur_s, cur_e = 0.0, None, None
+    for s, e in sorted((s, s + d) for _, _, s, d in events):
+        if cur_e is None or s > cur_e:
+            busy += 0.0 if cur_e is None else cur_e - cur_s
+            cur_s, cur_e = s, e
+        else:
+            cur_e = max(cur_e, e)
+    busy += cur_e - cur_s
+    span = max(s + d for _, _, s, d in events) - min(s for _, _, s, _ in events)
+    kinds = {}
+    launches = 0
+    for cat, name, _, dur in events:
+        if cat == "kernel":
+            launches += 1
+            k = kinds.setdefault(kernel_kind(name), [0.0, 0])
+            k[0] += dur
+            k[1] += 1
+    print(f"trace of {steps} steps: {launches / steps:.0f} kernel launches per step, device "
+          f"busy {busy / steps / 1e3:.2f} ms of {span / steps / 1e3:.2f} ms traced span per step "
+          f"(idle share {1 - busy / span:.3f}); device ms per step by kind: "
+          + ", ".join(f"{name} {us / steps / 1e3:.2f} ({n / steps:.0f})"
+                      for name, (us, n) in sorted(kinds.items(), key=lambda kv: -kv[1][0])),
+          flush=True)
+
+
+def training_path(device, scratch):
+    """Phase 8: the bf16 training path at 640x512, N=5, B=2. Returns the
+    launch counts of the driver's run."""
+    import torch
+
+    from patchmatchnet_torch.config import Config
+    from patchmatchnet_torch.data import BatchLoader, MVSDataset, make_synthetic_scene
+    from patchmatchnet_torch.models import PatchmatchNet
+    from patchmatchnet_torch.ops import cuda_build
+    from patchmatchnet_torch.train import (
+        batch_to_device,
+        load_train_checkpoint,
+        make_optimizer,
+        run_training,
+        save_train_checkpoint,
+        train_step,
+    )
+    from patchmatchnet_torch.train.driver import load_model_weights, step_noise
+
+    scene = os.path.join(scratch, "train_scene")
+    make_synthetic_scene(scene, num_views=TRAIN_SCENE_VIEWS, height=TRAIN_H, width=TRAIN_W,
+                         texture_scale=8.0)
+    dataset = MVSDataset(scene, TRAIN_VIEWS - 1, ".png")
+    loader = BatchLoader(dataset, TRAIN_BATCH, shuffle=True, drop_last=True, seed=1)
+    batches = [batch_to_device(b, device) for b in loader]  # 6 batches of 2
+    if len(batches) < TIMED_STEPS:
+        fail(f"the scene gives {len(batches)} batches, need {TIMED_STEPS}")
+
+    def fresh():
+        model = PatchmatchNet(compute_dtype=torch.bfloat16).to(device)
+        load_model_weights(model, CKPT)
+        return model, make_optimizer(model.parameters(), 1e-3)
+
+    model, opt = fresh()
+    train_step(model, opt, batches[0], 1e-3, step_noise(batches[0], 1, 0))  # warm-up
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(device)
+    cuda_build.reset_launch_counts()
+    ms, losses = [], []
+    for i in range(1, TIMED_STEPS + 1):
+        batch = batches[i % len(batches)]
+        start = time.perf_counter()
+        metrics, _ = train_step(model, opt, batch, 1e-3, step_noise(batch, 1, i))
+        losses.append(float(metrics["loss"]))  # waits for the step
+        ms.append((time.perf_counter() - start) * 1e3)
+    counts = cuda_build.launch_counts()
+    peak = torch.cuda.max_memory_allocated(device)
+    med = statistics.median(ms)
+    print(f"timed steps {TIMED_STEPS}, ms per step: " + " ".join(f"{t:.2f}" for t in ms),
+          flush=True)
+    print(f"median ms/step {med:.2f}, {TRAIN_BATCH * 1e3 / med:.3f} samples/s, peak memory "
+          f"{peak / 2**20:.1f} MiB, losses " + " ".join(f"{v:.5f}" for v in losses),
+          flush=True)
+    print(f"launch counts over {TIMED_STEPS} steps: {counts}", flush=True)
+    trace_steps(lambda: train_step(model, opt, batches[1], 1e-3, step_noise(batches[1], 1, 1)),
+                2, os.path.join(scratch, "train_trace.json"))
+    if not all(math.isfinite(v) for v in losses):
+        fail(f"non-finite training loss: {losses}")
+    for name, per in EXPECTED_PER_STEP.items():
+        if counts.get(name, 0) != per * TIMED_STEPS:
+            fail(f"{name} launched {counts.get(name, 0)} times, expected {per} x {TIMED_STEPS}")
+
+    # resume: the checkpoint after step k takes step k + 1 as the
+    # uninterrupted run does: the same loss (the parameters), the same
+    # update (the Adam moments and step count; the backward's atomics make
+    # it equal only to rounding) and the same running statistics
+    ckpt = os.path.join(scratch, "resume", "params_000000.ckpt.pt")
+    k = TIMED_STEPS
+    save_train_checkpoint(ckpt, model, opt, step=k + 1, epoch=0)
+    before = {n: p.detach().clone() for n, p in model.named_parameters()}
+    nxt = batches[(k + 1) % len(batches)]
+    noise = step_noise(nxt, 1, k + 1)
+    want = float(train_step(model, opt, nxt, 1e-3, noise)[0]["loss"])
+    model2, opt2 = fresh()
+    load_train_checkpoint(ckpt, model2, opt2)
+    got = float(train_step(model2, opt2, nxt, 1e-3, noise)[0]["loss"])
+    rel = abs(got - want) / abs(want)
+
+    def norm(tensors):
+        return math.sqrt(sum(float(t.double().square().sum()) for t in tensors))
+
+    after = {n: p.detach() for n, p in model.named_parameters()}
+    after2 = {n: p.detach() for n, p in model2.named_parameters()}
+    update = norm(after[n] - before[n] for n in after)
+    update_rel = norm(after2[n] - after[n] for n in after) / update
+    buffers2 = dict(model2.named_buffers())
+    stats_rel = norm(buffers2[n] - b for n, b in model.named_buffers()) / norm(
+        b for _, b in model.named_buffers())
+    print(f"resume: step {k + 1} loss {want:.7f}, from the checkpoint {got:.7f} "
+          f"(rel {rel:.3e}); update |resumed - uninterrupted| / |update| {update_rel:.3e} "
+          f"(|update| {update:.3e}); running statistics rel {stats_rel:.3e}", flush=True)
+    if rel > 1e-5 or update_rel > 1e-2 or stats_rel > 1e-5:
+        fail("the resumed step differs from the uninterrupted one (bounds: loss 1e-5, "
+             "update 1e-2, running statistics 1e-5 relative)")
+    del model, opt, model2, opt2, batches, before
+
+    # the driver: one epoch of the same scene
+    cfg = Config()
+    cfg.data.input_folder = scene
+    cfg.data.num_views = TRAIN_VIEWS - 1
+    cfg.data.image_extension = ".png"
+    cfg.data.batch_size = TRAIN_BATCH
+    cfg.train.output_folder = os.path.join(scratch, "run")
+    cfg.train.checkpoint_path = CKPT
+    cfg.train.epochs = 1
+    cfg.train.summary_freq = 1
+    cuda_build.reset_launch_counts()
+    history = run_training(cfg)
+    counts = cuda_build.launch_counts()
+    steps = len(history)
+    val = len(dataset) // TRAIN_BATCH  # validation forwards (running statistics)
+    print(f"run_training: {steps} steps, losses "
+          + " ".join(f"{r['loss']:.5f}" for r in history) + ", ms per step "
+          + " ".join(f"{r['step_ms']:.2f}" for r in history) + f"; launches {counts}", flush=True)
+    want = {name: per * steps for name, per in EXPECTED_PER_STEP.items()}
+    for name, per in EXPECTED_PER_FORWARD.items():
+        want[name] += per * val
+    if counts != {k: v for k, v in want.items() if v}:
+        fail(f"run_training launched {counts}, expected {want}")
+    if not all(math.isfinite(r["loss"]) for r in history):
+        fail("run_training produced a non-finite loss")
+    if not os.path.isfile(os.path.join(cfg.train.output_folder, "params_000000.ckpt.pt")):
+        fail("run_training wrote no checkpoint")
+    return counts
+
+
 def main() -> int:
     if not os.path.isdir(os.path.join(REPO, "patchmatchnet_torch")):
         fail("run from a checkout of the repository (patchmatchnet_torch/ not found)")
@@ -343,6 +712,23 @@ def main() -> int:
     phase(f"main path: bf16 DepthEstimator, {MAIN_W}x{MAIN_H}, {MAIN_VIEWS} views, "
           f"{REQUESTS} requests")
     counts = main_path(device, state_dict)
+
+    phase("backward-kernel parity (K4/K5 vs plain versions on the card)")
+    summary.update(backward_parity(device))
+
+    phase("f32 train-step parity (card with kernels, TF32 off, vs CPU)")
+    train_step_parity(device, state_dict)
+
+    phase(f"training path: bf16, {TRAIN_W}x{TRAIN_H}, {TRAIN_VIEWS} views, "
+          f"batch {TRAIN_BATCH}")
+    scratch = tempfile.mkdtemp(prefix="smoke_train_", dir=os.path.join(REPO, "build"))
+    try:
+        train_counts = training_path(device, scratch)
+    finally:
+        shutil.rmtree(scratch, ignore_errors=True)
+    # launches: the inference kernels from the inference path's run (phase
+    # 5), the backward kernels from the training driver's run (phase 8)
+    counts.update({name: train_counts.get(name, 0) for name in BACKWARD_KERNELS})
 
     kernels = [
         {"name": name, "route": "cuda", "source": src, "replaces": replaces,

@@ -1,19 +1,25 @@
-"""patchmatchnet_torch — PatchmatchNet inference in PyTorch with hand-written
-CUDA kernels for NVIDIA Hopper (sm_90a).
+"""patchmatchnet_torch — PatchmatchNet inference and training in PyTorch with
+hand-written CUDA kernels for NVIDIA Hopper (sm_90a).
 
 The JAX package `patchmatchnet_tpu` is the reference this package is held
 against. This package imports `torch` and never `jax`, `flax` or the JAX
 package.
 
 Layout:
-- `compat.weights`: flax msgpack checkpoint reader + state-dict conversion.
-- `models`: FeatureNet, the PatchMatch stages, Refinement and the cascade.
-- `ops`: plain tensor ops and the three kernel wrappers
-  (`warp_similarity`, `neighbor_similarity`, `eval_tail`), each with a plain
-  PyTorch twin used for CPU tensors; `cuda_build` builds `csrc/` with nvcc.
+- `compat.weights`: flax msgpack checkpoint reader + state-dict conversion,
+  including gradient/Adam trees and JAX training checkpoints.
+- `models`: FeatureNet, the PatchMatch stages, Refinement, the cascade
+  (eval and train modes) and the loss.
+- `ops`: plain tensor ops and the kernel wrappers (`warp_similarity` K1
+  with its backward K4, `neighbor_similarity` K3 with its backward K5,
+  `eval_tail` K2), each with a plain PyTorch twin used for CPU tensors;
+  `cuda_build` builds `csrc/` with nvcc.
 - `infer.depth`: `DepthEstimator` and `save_depth_maps`.
+- `train`: train/eval steps, Adam + MultiStep, checkpoints and the epoch
+  driver `run_training` (configured by `config.Config`).
 - `data`: file codecs, the MVS scene dataset and batch loader, and a
   synthetic scene with known depth.
+- `utils`: depth metrics and the JSONL/TensorBoard metrics logger.
 """
 
 __version__ = "0.1.0"

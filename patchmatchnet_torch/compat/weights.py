@@ -16,12 +16,18 @@ package is needed.
   running_mean/running_var.
 The port's module tree mirrors the flax tree, so a leaf at
 params/a/b/kernel becomes the key "a.b.weight".
+
+`tensors_from_jax_params` applies the same rules to any params-shaped tree
+(gradients, Adam moments), and `train_state_from_jax` maps a JAX training
+checkpoint (`patchmatchnet_tpu/train/loop.py` `save_train_checkpoint`) to
+the model state dict, per-parameter `torch.optim.Adam` state and the step
+and epoch counters.
 """
 
 from __future__ import annotations
 
 import struct
-from typing import Any, Dict, Tuple
+from typing import Any, Dict, NamedTuple, Tuple
 
 import numpy as np
 import torch
@@ -143,6 +149,30 @@ def _torch_weight(scope: Tuple[str, ...], kernel: np.ndarray) -> np.ndarray:
     return np.transpose(kernel, (3, 2, 0, 1))  # HWIO -> OIHW
 
 
+def _map_collection(tree: Dict[str, Any], names: Dict[str, str], collection: str,
+                    out: Dict[str, torch.Tensor]) -> None:
+    for path, value in _leaves(tree):
+        scope, leaf = path[:-1], path[-1]
+        if leaf not in names:
+            raise ValueError(f"unmapped leaf {collection}/{'/'.join(path)}")
+        arr = np.asarray(value, np.float32)
+        if leaf == "kernel":
+            arr = _torch_weight(scope, arr)
+        key = ".".join(scope + (names[leaf],))
+        if key in out:
+            raise ValueError(f"two leaves map to {key}")
+        out[key] = torch.from_numpy(np.array(arr, np.float32, order="C"))
+
+
+def tensors_from_jax_params(tree: Dict[str, Any]) -> Dict[str, torch.Tensor]:
+    """A params-shaped flax tree (the params themselves, their gradients or
+    Adam moments) -> f32 tensors keyed and laid out like the port's
+    parameters in its state dict."""
+    out: Dict[str, torch.Tensor] = {}
+    _map_collection(tree, _PARAM_NAMES, "params", out)
+    return out
+
+
 def state_dict_from_jax(variables: Dict[str, Any]) -> Dict[str, torch.Tensor]:
     """{'params': ..., 'batch_stats': ...} flax tree -> PyTorch state dict
     for `patchmatchnet_torch.models.PatchmatchNet` (f32 tensors)."""
@@ -150,16 +180,49 @@ def state_dict_from_jax(variables: Dict[str, Any]) -> Dict[str, torch.Tensor]:
     if unknown:
         raise ValueError(f"unexpected collections {sorted(unknown)}")
     out: Dict[str, torch.Tensor] = {}
-    for collection, names in (("params", _PARAM_NAMES), ("batch_stats", _STAT_NAMES)):
-        for path, value in _leaves(variables.get(collection, {})):
-            scope, leaf = path[:-1], path[-1]
-            if leaf not in names:
-                raise ValueError(f"unmapped leaf {collection}/{'/'.join(path)}")
-            arr = np.asarray(value, np.float32)
-            if leaf == "kernel":
-                arr = _torch_weight(scope, arr)
-            key = ".".join(scope + (names[leaf],))
-            if key in out:
-                raise ValueError(f"two leaves map to {key}")
-            out[key] = torch.from_numpy(np.ascontiguousarray(arr))
+    _map_collection(variables.get("params", {}), _PARAM_NAMES, "params", out)
+    _map_collection(variables.get("batch_stats", {}), _STAT_NAMES, "batch_stats", out)
     return out
+
+
+class TrainState(NamedTuple):
+    """A training checkpoint in the port's terms."""
+
+    state_dict: Dict[str, torch.Tensor]  # model parameters and running stats
+    adam: Dict[str, Dict[str, torch.Tensor]]  # parameter name -> Adam state
+    step: int  # optimizer steps taken
+    epoch: int  # last finished epoch
+
+
+def _find_adam_state(tree: Any) -> Dict[str, Any]:
+    """The optax `ScaleByAdamState` ({count, mu, nu}) inside an opt_state
+    tree, whether or not a weight-decay transform precedes it."""
+    if isinstance(tree, dict):
+        if {"count", "mu", "nu"} <= set(tree):
+            return tree
+        for value in tree.values():
+            found = _find_adam_state(value)
+            if found:
+                return found
+    return {}
+
+
+def train_state_from_jax(payload: Dict[str, Any]) -> TrainState:
+    """A JAX training checkpoint (`read_flax_msgpack` of a
+    `params_*.ckpt.msgpack`: epoch, step, params, batch_stats, opt_state)
+    -> `TrainState` with `torch.optim.Adam` state per parameter:
+    exp_avg = mu, exp_avg_sq = nu, step = count."""
+    adam_tree = _find_adam_state(payload["opt_state"])
+    if not adam_tree:
+        raise ValueError("no Adam state (count, mu, nu) in the checkpoint's opt_state")
+    count = float(np.asarray(adam_tree["count"]))
+    mu = tensors_from_jax_params(adam_tree["mu"])
+    nu = tensors_from_jax_params(adam_tree["nu"])
+    adam = {
+        name: {"step": torch.tensor(count, dtype=torch.float32),
+               "exp_avg": mu[name], "exp_avg_sq": nu[name]}
+        for name in mu
+    }
+    variables = {"params": payload["params"], "batch_stats": payload["batch_stats"]}
+    return TrainState(state_dict_from_jax(variables), adam, int(np.asarray(payload["step"])),
+                      int(np.asarray(payload["epoch"])))

@@ -43,12 +43,85 @@ struct VecLoad<__nv_bfloat16> {
 __device__ __forceinline__ float to_float(float v) { return v; }
 __device__ __forceinline__ float to_float(__nv_bfloat16 v) { return __bfloat162float(v); }
 
-// align_corners=False unnormalization of a grid coordinate, clamped to the
-// border: ((g + 1) * size - 1) / 2 in [0, size - 1]. Rounded op by op (no
-// FMA contraction) so it matches the PyTorch/JAX element-wise formulas.
+// align_corners=False unnormalization of a grid coordinate:
+// ((g + 1) * size - 1) / 2. Rounded op by op (no FMA contraction) so it
+// matches the PyTorch/JAX element-wise formulas.
+__device__ __forceinline__ float unnormalize(float g, int size) {
+  return __fmul_rn(__fsub_rn(__fmul_rn(__fadd_rn(g, 1.0f), (float)size), 1.0f), 0.5f);
+}
+
+// `unnormalize` clamped to the border, [0, size - 1].
 __device__ __forceinline__ float unnormalize_border(float g, int size) {
-  const float t = __fmul_rn(__fsub_rn(__fmul_rn(__fadd_rn(g, 1.0f), (float)size), 1.0f), 0.5f);
-  return fminf(fmaxf(t, 0.0f), (float)(size - 1));
+  return fminf(fmaxf(unnormalize(g, size), 0.0f), (float)(size - 1));
+}
+
+// The four bilinear taps of one sample: corner (x0, y0) of the 2x2 cell,
+// weights w[t] and validity valid[t] for t = (x0,y0), (x0+1,y0), (x0,y0+1),
+// (x0+1,y0+1). Forward and backward kernels share these helpers, so a
+// sample reads the same cell in both.
+struct Taps {
+  float w[4];
+  bool valid[4];
+  int x0, y0;
+  float fx, fy;
+};
+
+__device__ __forceinline__ void set_weights(Taps& t) {
+  t.w[0] = (1.0f - t.fx) * (1.0f - t.fy);
+  t.w[1] = t.fx * (1.0f - t.fy);
+  t.w[2] = (1.0f - t.fx) * t.fy;
+  t.w[3] = t.fx * t.fy;
+}
+
+// Homography warp of reference pixel (u, v) at depth `dep` through
+// m = [R | t] (12 floats, row-major): p = R [u, v, 1]^T * dep + t,
+// (ix, iy) = (px, py) / pz, rounded op by op like the reference. Zeros
+// padding, align_corners=True; pz <= 1e-3 (behind the source camera)
+// pushes the sample to (Ws, Hs), where no corner is valid.
+__device__ __forceinline__ Taps warp_taps(const float* m, float u, float v, float dep,
+                                          int Hs, int Ws) {
+  const float rx = __fadd_rn(__fadd_rn(__fmul_rn(m[0], u), __fmul_rn(m[1], v)), m[2]);
+  const float ry = __fadd_rn(__fadd_rn(__fmul_rn(m[4], u), __fmul_rn(m[5], v)), m[6]);
+  const float rz = __fadd_rn(__fadd_rn(__fmul_rn(m[8], u), __fmul_rn(m[9], v)), m[10]);
+  const float px = __fadd_rn(__fmul_rn(rx, dep), m[3]);
+  const float py = __fadd_rn(__fmul_rn(ry, dep), m[7]);
+  const float pz = __fadd_rn(__fmul_rn(rz, dep), m[11]);
+  const bool behind = pz <= 1e-3f;
+  const float ix = behind ? (float)Ws : __fdiv_rn(px, pz);
+  const float iy = behind ? (float)Hs : __fdiv_rn(py, pz);
+  const float x0f = floorf(ix), y0f = floorf(iy);
+  Taps t;
+  t.fx = ix - x0f;
+  t.fy = iy - y0f;
+  const bool x0v = x0f >= 0.0f && x0f <= (float)(Ws - 1);
+  const bool x1v = x0f >= -1.0f && x0f <= (float)(Ws - 2);
+  const bool y0v = y0f >= 0.0f && y0f <= (float)(Hs - 1);
+  const bool y1v = y0f >= -1.0f && y0f <= (float)(Hs - 2);
+  t.valid[0] = x0v && y0v;
+  t.valid[1] = x1v && y0v;
+  t.valid[2] = x0v && y1v;
+  t.valid[3] = x1v && y1v;
+  set_weights(t);
+  // clamp before the int conversion; out-of-range corners are not read
+  t.x0 = (int)fminf(fmaxf(x0f, -1.0f), (float)(Ws - 1));
+  t.y0 = (int)fminf(fmaxf(y0f, -1.0f), (float)(Hs - 1));
+  return t;
+}
+
+// Eval-grid sample at normalized (gx, gy): align_corners=False, border
+// clamping; the cell's x0 is clamped to [0, W-2], so fx may be 1 at the
+// last column. All four corners are valid.
+__device__ __forceinline__ Taps border_taps(float sx, float sy, int Hs, int Ws) {
+  const float x0f = fminf(fmaxf(floorf(sx), 0.0f), (float)(Ws - 2));
+  const float y0f = fminf(fmaxf(floorf(sy), 0.0f), (float)(Hs - 2));
+  Taps t;
+  t.fx = sx - x0f;
+  t.fy = sy - y0f;
+  t.valid[0] = t.valid[1] = t.valid[2] = t.valid[3] = true;
+  set_weights(t);
+  t.x0 = (int)x0f;
+  t.y0 = (int)y0f;
+  return t;
 }
 
 inline unsigned int num_blocks(long long total) {

@@ -49,55 +49,16 @@ __global__ void __launch_bounds__(kThreads) group_corr_kernel(
   const int d = (int)(bd % D);
   const int b = (int)(bd / D);
 
-  float ix, iy;
-  float w[4];
-  bool valid[4];
+  Taps taps;
   if constexpr (kWarp) {
-    // p = R [u, v, 1]^T * depth + t, rounded op by op like the reference
-    const float* m = mat12 + b * 12;
-    const float u = (float)x, v = (float)y, dep = depth[idx];
-    const float rx = __fadd_rn(__fadd_rn(__fmul_rn(m[0], u), __fmul_rn(m[1], v)), m[2]);
-    const float ry = __fadd_rn(__fadd_rn(__fmul_rn(m[4], u), __fmul_rn(m[5], v)), m[6]);
-    const float rz = __fadd_rn(__fadd_rn(__fmul_rn(m[8], u), __fmul_rn(m[9], v)), m[10]);
-    const float px = __fadd_rn(__fmul_rn(rx, dep), m[3]);
-    const float py = __fadd_rn(__fmul_rn(ry, dep), m[7]);
-    const float pz = __fadd_rn(__fmul_rn(rz, dep), m[11]);
-    const bool behind = pz <= 1e-3f;
-    ix = behind ? (float)Ws : __fdiv_rn(px, pz);
-    iy = behind ? (float)Hs : __fdiv_rn(py, pz);
-    const float x0f = floorf(ix), y0f = floorf(iy);
-    const float fx = ix - x0f, fy = iy - y0f;
-    const bool x0v = x0f >= 0.0f && x0f <= (float)(Ws - 1);
-    const bool x1v = x0f >= -1.0f && x0f <= (float)(Ws - 2);
-    const bool y0v = y0f >= 0.0f && y0f <= (float)(Hs - 1);
-    const bool y1v = y0f >= -1.0f && y0f <= (float)(Hs - 2);
-    valid[0] = x0v && y0v;
-    valid[1] = x1v && y0v;
-    valid[2] = x0v && y1v;
-    valid[3] = x1v && y1v;
-    w[0] = (1.0f - fx) * (1.0f - fy);
-    w[1] = fx * (1.0f - fy);
-    w[2] = (1.0f - fx) * fy;
-    w[3] = fx * fy;
-    // clamp before the int conversion; out-of-range corners are not read
-    ix = fminf(fmaxf(x0f, -1.0f), (float)(Ws - 1));
-    iy = fminf(fmaxf(y0f, -1.0f), (float)(Hs - 1));
+    taps = warp_taps(mat12 + b * 12, (float)x, (float)y, depth[idx], Hs, Ws);
   } else {
-    const float sx = unnormalize_border(gx[idx], Ws);
-    const float sy = unnormalize_border(gy[idx], Hs);
-    // border cell: x0 in [0, W-2], so fx may be 1 at the last column
-    const float x0f = fminf(fmaxf(floorf(sx), 0.0f), (float)(Ws - 2));
-    const float y0f = fminf(fmaxf(floorf(sy), 0.0f), (float)(Hs - 2));
-    const float fx = sx - x0f, fy = sy - y0f;
-    valid[0] = valid[1] = valid[2] = valid[3] = true;
-    w[0] = (1.0f - fx) * (1.0f - fy);
-    w[1] = fx * (1.0f - fy);
-    w[2] = (1.0f - fx) * fy;
-    w[3] = fx * fy;
-    ix = x0f;
-    iy = y0f;
+    taps = border_taps(unnormalize_border(gx[idx], Ws), unnormalize_border(gy[idx], Hs),
+                       Hs, Ws);
   }
-  const long long x0 = (long long)ix, y0 = (long long)iy;
+  const float* w = taps.w;
+  const bool* valid = taps.valid;
+  const long long x0 = taps.x0, y0 = taps.y0;
 
   const T* base = src + (long long)b * Hs * Ws * C;
   const T* corner[4] = {

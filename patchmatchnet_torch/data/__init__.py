@@ -15,8 +15,9 @@ from patchmatchnet_torch.data.mvs import (
     BatchLoader,
     MVSDataset,
     adjust_sample_dims,
+    scale_to_max_dim,
 )
-from patchmatchnet_torch.data.synthetic import PLANE_Z, make_synthetic_scene
+from patchmatchnet_torch.data.synthetic import PLANE_Z, make_synthetic_scene, plane_batch
 
 __all__ = [
     "BatchLoader",
@@ -24,6 +25,7 @@ __all__ = [
     "PLANE_Z",
     "adjust_sample_dims",
     "make_synthetic_scene",
+    "plane_batch",
     "read_cam_file",
     "read_image",
     "read_pair_file",
@@ -32,4 +34,5 @@ __all__ = [
     "save_image",
     "save_pair_file",
     "save_pfm",
+    "scale_to_max_dim",
 ]

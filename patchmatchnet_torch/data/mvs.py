@@ -1,24 +1,38 @@
-"""MVS scene index, sample loading and batching for inference (the
-inference subset of `patchmatchnet_tpu/data/mvs.py`).
+"""MVS scene index, sample loading and batching (reference:
+`patchmatchnet_tpu/data/mvs.py`).
 
 A sample stacks its views [N, H, W, 3] at one resolution, view 0 the
-reference. `BatchLoader` adjusts (H, W) to multiples of 8 the way the
-reference does (bilinear stretch, intrinsics rescaled, original size kept
-under `orig_height` / `orig_width`) and prefetches on threads.
+reference, with the reference view's ground-truth depth and the mask
+`depth_gt >= depth_min` when `depth_gt/{view:08d}.pfm` exists. Scenes may be
+listed in a scan list, with per-light image folders; `max_dim` shrinks
+images and depth maps so the longer side fits. `BatchLoader` adjusts (H, W)
+to multiples of 8 the way the reference does (bilinear stretch, intrinsics
+rescaled, original size kept under `orig_height` / `orig_width`), shuffles
+with a seed and prefetches on threads.
+
+Randomness is a function of (seed, epoch) rather than of a running
+generator, so a resumed run sees the epoch it would have seen: epoch e's
+order is `random.Random(seed + 1000003 * e).shuffle`, whose epoch 0 is the
+reference's first order; `robust_train` picks each sample's source views
+from `random.Random` seeded by (seed, epoch, index) (the reference draws
+them from the unseeded global generator).
 """
 
 from __future__ import annotations
 
 import os
+import random
 from collections import deque
 from concurrent.futures import ThreadPoolExecutor
-from typing import Any, Dict, Iterator, List, Sequence
+from typing import Any, Dict, Iterator, List, Sequence, Tuple
 
 import numpy as np
 import torch
 import torch.nn.functional as F
 
-from patchmatchnet_torch.data.codecs import read_cam_file, read_image, read_pair_file
+from patchmatchnet_torch.data.codecs import read_cam_file, read_image, read_pair_file, read_pfm
+
+_EPOCH_STRIDE = 1000003
 
 
 def _resize_bilinear(images: np.ndarray, height: int, width: int) -> np.ndarray:
@@ -27,6 +41,16 @@ def _resize_bilinear(images: np.ndarray, height: int, width: int) -> np.ndarray:
     nchw = torch.from_numpy(np.ascontiguousarray(images)).permute(0, 3, 1, 2)
     out = F.interpolate(nchw, size=(height, width), mode="bilinear", align_corners=False)
     return out.permute(0, 2, 3, 1).contiguous().numpy()
+
+
+def scale_to_max_dim(image: np.ndarray, max_dim: int) -> Tuple[np.ndarray, int, int]:
+    """Shrink [H, W, C] so max(H, W) <= max_dim (never grows; max_dim <= 0
+    keeps it). Returns (image, original height, original width)."""
+    height, width = image.shape[:2]
+    scale = max_dim / max(height, width)
+    if 0 < scale < 1:
+        image = _resize_bilinear(image[None], int(scale * height), int(scale * width))[0]
+    return image, height, width
 
 
 def adjust_sample_dims(sample: Dict[str, Any]) -> Dict[str, Any]:
@@ -45,43 +69,80 @@ def adjust_sample_dims(sample: Dict[str, Any]) -> Dict[str, Any]:
 
 
 class MVSDataset:
-    """One scene in the unified layout: `images/{view:08d}{ext}`,
-    `cams/{view:08d}_cam.txt`, `pair.txt`. Sample i is the i-th reference
-    view of pair.txt with its first `num_views` sources."""
+    """Scenes in the unified layout: `[scan/]images/[light/]{view:08d}{ext}`,
+    `[scan/]cams/{view:08d}_cam.txt`, `[scan/]pair.txt` and optionally
+    `[scan/]depth_gt/{view:08d}.pfm`. Scans come from `scan_list` (a file
+    of scan folder names) or are the single scene at `data_path`; with
+    `num_light_idx` > 0 every pair entry repeats per light folder. Sample i
+    is a reference view with its first `num_views` sources, or a seeded
+    random choice of them under `robust_train`."""
 
-    def __init__(self, data_path: str, num_views: int, image_extension: str = ".jpg"):
+    def __init__(self, data_path: str, num_views: int, image_extension: str = ".jpg",
+                 max_dim: int = -1, scan_list: str = "", num_light_idx: int = -1,
+                 robust_train: bool = False, seed: int = 0):
         self.data_path = data_path
         self.num_views = num_views
         self.image_extension = image_extension
-        self.metas = read_pair_file(os.path.join(data_path, "pair.txt"))
+        self.max_dim = max_dim
+        self.robust_train = robust_train
+        self.seed = seed
+        self.epoch = 0
+        scans = [""]
+        if scan_list and os.path.isfile(scan_list):
+            with open(scan_list) as f:
+                scans = [line.rstrip() for line in f]
+        lights = [str(i) for i in range(num_light_idx)] if num_light_idx > 0 else [""]
+        self.metas: List[Tuple[str, str, int, List[int]]] = []
+        for scan in scans:
+            pairs = read_pair_file(os.path.join(data_path, scan, "pair.txt"))
+            for light in lights:
+                self.metas += [(scan, light, ref, srcs) for ref, srcs in pairs]
 
     def __len__(self) -> int:
         return len(self.metas)
 
     def __getitem__(self, idx: int) -> Dict[str, Any]:
-        ref_view, src_views = self.metas[idx]
-        view_ids = [ref_view] + src_views[: self.num_views]
+        scan, light, ref_view, src_views = self.metas[idx]
+        num_src = min(len(src_views), self.num_views)
+        if self.robust_train:
+            rng = random.Random((self.seed + _EPOCH_STRIDE * self.epoch) * _EPOCH_STRIDE + idx)
+            view_ids = [ref_view] + [src_views[i]
+                                     for i in rng.sample(range(len(src_views)), num_src)]
+        else:
+            view_ids = [ref_view] + src_views[:num_src]
+        root = os.path.join(self.data_path, scan)
         images, intrinsics, extrinsics = [], [], []
         for view in view_ids:
-            image = read_image(os.path.join(
-                self.data_path, "images", f"{view:08d}{self.image_extension}"))
+            image, orig_h, orig_w = scale_to_max_dim(read_image(os.path.join(
+                root, "images", light, f"{view:08d}{self.image_extension}")), self.max_dim)
             if images and image.shape != images[0].shape:
                 raise ValueError(f"view {view} is {image.shape[:2]}, the reference "
                                  f"{images[0].shape[:2]}: views must share a size")
             intrinsic, extrinsic, depth_params = read_cam_file(
-                os.path.join(self.data_path, "cams", f"{view:08d}_cam.txt"))
+                os.path.join(root, "cams", f"{view:08d}_cam.txt"))
+            intrinsic = intrinsic.copy()
+            intrinsic[0] *= image.shape[1] / orig_w
+            intrinsic[1] *= image.shape[0] / orig_h
             if not images:
                 depth_min, depth_max = float(depth_params[0]), float(depth_params[1])
             images.append(image)
             intrinsics.append(intrinsic)
             extrinsics.append(extrinsic)
+        depth_gt = np.empty(0, np.float32)
+        mask = np.empty(0, bool)
+        gt_path = os.path.join(root, "depth_gt", f"{ref_view:08d}.pfm")
+        if os.path.isfile(gt_path):
+            depth_gt = scale_to_max_dim(read_pfm(gt_path), self.max_dim)[0][:, :, 0]
+            mask = depth_gt >= depth_min
         return {
             "images": np.stack(images),  # [N, H, W, 3]
             "intrinsics": np.stack(intrinsics),  # [N, 3, 3]
             "extrinsics": np.stack(extrinsics),  # [N, 4, 4]
             "depth_min": np.float32(depth_min),
             "depth_max": np.float32(depth_max),
-            "filename": os.path.join("{}", f"{ref_view:08d}" + "{}"),
+            "depth_gt": depth_gt,  # [H, W] f32 or empty
+            "mask": mask,  # [H, W] bool or empty
+            "filename": os.path.join(scan, "{}", f"{ref_view:08d}" + "{}"),
         }
 
 
@@ -92,27 +153,42 @@ def _stack_batch(samples: Sequence[Dict[str, Any]]) -> Dict[str, Any]:
 
 
 class BatchLoader:
-    """Batches of adjusted samples in dataset order. With `num_threads` > 1
-    a thread pool loads samples concurrently (PIL and numpy release the
-    GIL), keeping up to `prefetch` batches in flight."""
+    """Batches of adjusted samples, in dataset order or shuffled (seeded per
+    epoch, see the module note; `set_epoch` picks the epoch), optionally
+    dropping a last short batch. With `num_threads` > 1 a thread pool loads
+    samples concurrently (PIL and numpy release the GIL), keeping up to
+    `prefetch` batches in flight."""
 
     def __init__(self, dataset: MVSDataset, batch_size: int = 1, num_threads: int = 4,
-                 prefetch: int = 2):
+                 prefetch: int = 2, shuffle: bool = False, drop_last: bool = False,
+                 seed: int = 0):
         self.dataset = dataset
         self.batch_size = batch_size
         self.num_threads = max(1, num_threads)
         self.prefetch = max(1, prefetch)
+        self.shuffle = shuffle
+        self.drop_last = drop_last
+        self.seed = seed
+        self.epoch = 0
+
+    def set_epoch(self, epoch: int) -> None:
+        self.epoch = epoch
+        self.dataset.epoch = epoch
 
     def __len__(self) -> int:
-        return -(-len(self.dataset) // self.batch_size)
+        n = len(self.dataset)
+        return n // self.batch_size if self.drop_last else -(-n // self.batch_size)
 
     def _load(self, idx: int) -> Dict[str, Any]:
         return adjust_sample_dims(self.dataset[idx])
 
     def __iter__(self) -> Iterator[Dict[str, Any]]:
-        n = len(self.dataset)
-        batches: List[range] = [range(i, min(i + self.batch_size, n))
-                                for i in range(0, n, self.batch_size)]
+        order = list(range(len(self.dataset)))
+        if self.shuffle:
+            random.Random(self.seed + _EPOCH_STRIDE * self.epoch).shuffle(order)
+        batches = [order[i : i + self.batch_size] for i in range(0, len(order), self.batch_size)]
+        if self.drop_last:
+            batches = [b for b in batches if len(b) == self.batch_size]
         if self.num_threads == 1:
             for batch in batches:
                 yield _stack_batch([self._load(i) for i in batch])

@@ -14,8 +14,15 @@ The reference's per-position channel maps (1x1x1 Conv3d in the original
 model, Dense in the JAX package) are 1x1 convolutions here, applied to
 channel-first volumes [B, C, ...] by folding the trailing dims into 2-D.
 
-Inference only: BatchNorm always uses its running statistics, folded to one
-multiply-add (training with batch statistics belongs with the loss).
+BatchNorm follows the module's mode: `model.eval()` folds the running
+statistics to one multiply-add; `model.train()` normalizes with the batch
+statistics and updates the running ones as flax `nn.BatchNorm(momentum=0.9,
+epsilon=1e-5)` does (reference: `layers.apply_batch_norm`).
+
+Initialization is torch's default (kaiming_uniform(a=sqrt(5)) weights,
+U(+-1/sqrt(fan_in)) biases), which the reference reproduces with
+`torch_kernel_init` / `torch_bias_init`; BatchNorm starts at scale 1,
+bias 0, mean 0, var 1.
 """
 
 from __future__ import annotations
@@ -49,8 +56,14 @@ def channel_map(conv: nn.Conv2d, x: torch.Tensor, dtype: Optional[torch.dtype]) 
 
 
 class BatchNorm(nn.Module):
-    """Inference BatchNorm over axis 1, folded to x * scale + bias in the
-    input dtype (reference: layers.py `folded_bn_apply`), eps = 1e-5."""
+    """BatchNorm over axis 1, eps = 1e-5.
+
+    Eval mode: folded to x * scale + bias in the input dtype (reference:
+    layers.py `folded_bn_apply`). Train mode (flax `nn.BatchNorm` with
+    momentum 0.9): f32 batch mean and biased variance over every axis but
+    1, computed as E[x^2] - E[x]^2 clipped at 0 like flax; output in the
+    input dtype; the running statistics move to 0.9 * old + 0.1 * batch,
+    once per call."""
 
     def __init__(self, channels: int):
         super().__init__()
@@ -60,22 +73,38 @@ class BatchNorm(nn.Module):
         self.register_buffer("running_var", torch.ones(channels))
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
+        shape = (1, -1) + (1,) * (x.dim() - 2)
+        if self.training:
+            dims = [0] + list(range(2, x.dim()))
+            xf = x.float()
+            mean = xf.mean(dim=dims)
+            var = torch.clamp((xf * xf).mean(dim=dims) - mean * mean, min=0.0)
+            with torch.no_grad():
+                self.running_mean.mul_(0.9).add_(0.1 * mean)
+                self.running_var.mul_(0.9).add_(0.1 * var)
+            mul = torch.rsqrt(var + 1e-5) * self.weight
+            y = (xf - mean.view(shape)) * mul.view(shape) + self.bias.view(shape)
+            return y.to(x.dtype)
         scale = self.weight * torch.rsqrt(self.running_var + 1e-5)
         bias = self.bias - self.running_mean * scale
-        shape = (1, -1) + (1,) * (x.dim() - 2)
         return x * scale.to(x.dtype).view(shape) + bias.to(x.dtype).view(shape)
 
 
 class Conv2d(nn.Module):
     """Conv2d with bias under a `conv2d` child (reference: layers.Conv2d),
-    used for the learned-offset convs."""
+    used for the learned-offset convs, which start at zero (`zero_init`,
+    as in the reference)."""
 
     def __init__(self, in_channels: int, out_channels: int, kernel_size: int = 3,
-                 pad: int = 1, dilation: int = 1, dtype: Optional[torch.dtype] = None):
+                 pad: int = 1, dilation: int = 1, dtype: Optional[torch.dtype] = None,
+                 zero_init: bool = False):
         super().__init__()
         self.dtype = dtype
         self.conv2d = nn.Conv2d(in_channels, out_channels, kernel_size,
                                 padding=pad, dilation=dilation, bias=True)
+        if zero_init:
+            nn.init.zeros_(self.conv2d.weight)
+            nn.init.zeros_(self.conv2d.bias)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         return conv2d(self.conv2d, x, self.dtype)

@@ -1,6 +1,13 @@
-"""PatchmatchNet inference forward: FeatureNet -> PatchMatch stages 3, 2, 1
--> Refinement -> photometric confidence (reference:
-`patchmatchnet_tpu/models/net.py`, `PatchmatchNet.__call__(train=False)`).
+"""PatchmatchNet forward: FeatureNet -> PatchMatch stages 3, 2, 1 ->
+Refinement -> photometric confidence, and the training loss (reference:
+`patchmatchnet_tpu/models/net.py`, `PatchmatchNet.__call__` and
+`patchmatchnet_loss`).
+
+`model.eval()` is the inference forward (`train=False` in the reference).
+`model.train()` is the training forward (`train=True`): BatchNorm on batch
+statistics, FeatureNet called once per view (so each view has its own
+statistics and its own running-statistics update, as in the reference), no
+gradient between stages, and zero confidence.
 
 `compute_dtype=torch.bfloat16` runs the feature and correlation payloads in
 bf16 while geometry, softmax, regression and the refinement residual stay
@@ -12,7 +19,7 @@ its convolutions in full f32 as the reference does.
 from __future__ import annotations
 
 import contextlib
-from typing import Dict, Iterator, List, Optional, Tuple
+from typing import Dict, Iterator, List, Optional, Sequence, Tuple
 
 import torch
 import torch.nn as nn
@@ -40,7 +47,8 @@ def full_f32() -> Iterator[None]:
 class PatchmatchNet(nn.Module):
     """The released model's cascade (stage settings in
     `patchmatch.STAGE_CONFIG`); `compute_dtype` None runs f32, bf16 runs
-    bf16 payloads."""
+    bf16 payloads. It is built in eval (inference) mode; `.train()` selects
+    the training forward."""
 
     def __init__(self, compute_dtype: Optional[torch.dtype] = None):
         super().__init__()
@@ -49,6 +57,7 @@ class PatchmatchNet(nn.Module):
         for stage in (1, 2, 3):
             self.add_module(f"patchmatch_{stage}", PatchMatch(stage, dtype=compute_dtype))
         self.upsample_net = Refinement(dtype=compute_dtype)
+        self.eval()
 
     def forward(
         self,
@@ -92,13 +101,22 @@ class PatchmatchNet(nn.Module):
             init_noise = torch.rand((b, INITIAL_NUM_SAMPLES, h // 8, w // 8),
                                     generator=generator, device=dev)
 
-        # Step 1: features of all views in one batch; NHWC buffers
-        # (channels_last) so that [B, N, h, w, C] views need no copy.
-        nchw = images.reshape(b * n, h, w, 3).permute(0, 3, 1, 2)
-        features = {
-            s: f.permute(0, 2, 3, 1).reshape(b, n, *f.shape[2:], f.shape[1])
-            for s, f in self.feature(nchw).items()
-        }
+        # Step 1: features as NHWC buffers (channels_last convs), one list
+        # of N views [B, h, w, C] per stage.
+        features: Dict[int, List[torch.Tensor]] = {s: [] for s in (1, 2, 3)}
+        if self.training:
+            # one call per view: per-view batch statistics (reference:
+            # net.py:120-123)
+            for v in range(n):
+                view = images[:, v].contiguous().permute(0, 3, 1, 2)
+                for s, f in self.feature(view).items():
+                    features[s].append(f.permute(0, 2, 3, 1).contiguous())
+        else:
+            # running statistics: all views in one batch
+            nchw = images.reshape(b * n, h, w, 3).permute(0, 3, 1, 2)
+            for s, f in self.feature(nchw).items():
+                f = f.permute(0, 2, 3, 1).reshape(b, n, *f.shape[2:], f.shape[1])
+                features[s] = [f[:, v].contiguous() for v in range(n)]
 
         # Step 2: per-stage projection matrices (K scaled per level).
         projs: Dict[int, torch.Tensor] = {}
@@ -116,8 +134,8 @@ class PatchmatchNet(nn.Module):
         for stage in (3, 2, 1):
             feats = features[stage]
             depths, score, view_weights = getattr(self, f"patchmatch_{stage}")(
-                ref_feature=feats[:, 0].contiguous(),
-                src_features=[feats[:, v].contiguous() for v in range(1, n)],
+                ref_feature=feats[0],
+                src_features=feats[1:],
                 ref_proj=projs[stage][:, 0],
                 src_projs=[projs[stage][:, v] for v in range(1, n)],
                 depth_min=depth_min,
@@ -127,7 +145,7 @@ class PatchmatchNet(nn.Module):
                 init_noise=init_noise if stage == 3 else None,
             )
             depth_patchmatch[stage] = depths
-            depth = depths[-1]
+            depth = depths[-1].detach()  # no gradient between stages
             if stage > 1:
                 depth = upsample_nearest_x2(depth[:, None])[:, 0]
                 view_weights = upsample_nearest_x2(view_weights)
@@ -136,6 +154,8 @@ class PatchmatchNet(nn.Module):
         depth = self.upsample_net(images[:, 0].permute(0, 3, 1, 2), depth,
                                   depth_min, depth_max)
         depth_patchmatch[0] = [depth]
+        if self.training:
+            return depth, torch.zeros_like(depth), depth_patchmatch
         return depth, self._confidence(score), depth_patchmatch
 
     def _confidence(self, score: torch.Tensor) -> torch.Tensor:
@@ -148,3 +168,31 @@ class PatchmatchNet(nn.Module):
         index = index.to(torch.int64).clamp(0, num_depth - 1)
         confidence = torch.gather(score_sum4, -1, index[..., None])  # [B, H/2, W/2, 1]
         return upsample_nearest_x2(confidence.permute(0, 3, 1, 2))[:, 0]
+
+
+def smooth_l1_loss(pred: torch.Tensor, target: torch.Tensor) -> torch.Tensor:
+    """Elementwise smooth-L1 (beta 1), as `F.smooth_l1_loss(reduction="none")`."""
+    diff = (pred - target).abs()
+    return torch.where(diff < 1.0, 0.5 * diff * diff, diff - 0.5)
+
+
+def patchmatchnet_loss(
+    depth_patchmatch: Dict[int, List[torch.Tensor]],
+    depth_gt: Sequence[torch.Tensor],
+    mask: Sequence[torch.Tensor],
+) -> torch.Tensor:
+    """Masked smooth-L1 summed over every iteration of every stage
+    (reference: net.py `patchmatchnet_loss`).
+
+    Args:
+        depth_patchmatch: {stage: [depths [B, H_s, W_s]]}, stages 0..3.
+        depth_gt / mask: per-stage GT pyramid, each [B, H_s, W_s] (mask
+            boolean), stage 0 at full resolution.
+    """
+    loss = torch.zeros((), dtype=torch.float32, device=depth_gt[0].device)
+    for i in range(4):
+        m = mask[i].float()
+        denom = m.sum().clamp(min=1.0)
+        for depth in depth_patchmatch[i]:
+            loss = loss + (smooth_l1_loss(depth, depth_gt[i]) * m).sum() / denom
+    return loss

@@ -15,6 +15,14 @@ keeps [B, H, W, V]); they are only passed between stages.
 The evaluation runs the three kernels: K1 `warp_group_corr` per source
 view, K3 `neighbor_group_corr` on a stage's first iteration, and K2
 `eval_grid_score` for the aggregation tail, in f32 and bf16 modes alike.
+
+Train mode (`module.train()`) places the reference's stop-gradients: the
+perturbation centre, x_norm and the depth weight carry none; K1 passes
+gradients to the features only (K4 backward), K3 to the eval grid only (K5
+backward, on the detached reference feature); the returned view weights are
+detached while the first evaluation's own weights keep their gradient; and
+the aggregation tail is the plain `eval_grid_score_reference`, as the
+reference's training tail is plain XLA.
 """
 
 from __future__ import annotations
@@ -25,7 +33,7 @@ import torch
 import torch.nn as nn
 
 from patchmatchnet_torch.models.layers import Conv2d, Dense1, DenseBnReLU, cast
-from patchmatchnet_torch.ops.eval_tail import eval_grid_score
+from patchmatchnet_torch.ops.eval_tail import eval_grid_score, eval_grid_score_reference
 from patchmatchnet_torch.ops.grid_sample import grid_sample_2d
 from patchmatchnet_torch.ops.neighbor_similarity import neighbor_group_corr
 from patchmatchnet_torch.ops.warp import warp_proj_coeffs
@@ -79,7 +87,8 @@ def init_perturbed_depth(depth: torch.Tensor, depth_min: torch.Tensor,
     offsets = torch.arange(-(num_samples // 2), num_samples // 2,
                            dtype=depth.dtype, device=depth.device)
     inv_interval = (inv_min - inv_max) * interval_scale
-    inv_sample = 1.0 / depth[:, None] + inv_interval * offsets.reshape(1, num_samples, 1, 1)
+    inv_sample = (1.0 / depth.detach()[:, None]
+                  + inv_interval * offsets.reshape(1, num_samples, 1, 1))
     inv_sample = torch.clamp(inv_sample, inv_max, inv_min)
     return 1.0 / inv_sample
 
@@ -228,15 +237,17 @@ class Evaluation(nn.Module):
         cost_img = self.similarity_net(similarity)  # [B, H, W, D]
 
         if feature_weight is None:
-            # first iteration of the stage (reference: patchmatch.py:565-573)
-            corr = neighbor_group_corr(ref_feature, grid, self.groups)
+            # first iteration of the stage (reference: patchmatch.py:564-573),
+            # on the detached feature: the gradient reaches the grid only
+            corr = neighbor_group_corr(ref_feature.detach(), grid, self.groups)
             feature_weight = self.feature_weight_net.weights_from_corr(corr)
-        score = eval_grid_score(x_norm_img, cost_img, grid, feature_weight, interval_scale)
+        tail = eval_grid_score_reference if self.training else eval_grid_score
+        score = tail(x_norm_img, cost_img, grid, feature_weight, interval_scale)
         score = torch.softmax(score, dim=-1)
         if view_weights is None:
             view_weights = torch.stack(new_view_weights, dim=1)  # [B, V, H, W]
         depth = self._regress(score, depth_sample, is_inverse)
-        return depth, score, view_weights, feature_weight
+        return depth, score, view_weights.detach(), feature_weight
 
     @staticmethod
     def _regress(score: torch.Tensor, depth_sample: torch.Tensor,
@@ -265,9 +276,9 @@ class PatchMatch(nn.Module):
         d = cfg.propagation_range
         if cfg.propagate_neighbors:
             self.propa_conv = Conv2d(cfg.features, 2 * cfg.propagate_neighbors, 3,
-                                     pad=d, dilation=d, dtype=dtype)
+                                     pad=d, dilation=d, dtype=dtype, zero_init=True)
         self.eval_conv = Conv2d(cfg.features, 2 * EVALUATE_NEIGHBORS, 3,
-                                pad=d, dilation=d, dtype=dtype)
+                                pad=d, dilation=d, dtype=dtype, zero_init=True)
         self.evaluation = Evaluation(cfg.groups, pixel_wise=stage == 3, dtype=dtype)
 
     def forward(
@@ -319,7 +330,8 @@ class PatchMatch(nn.Module):
             depth_sample = depth_sample.contiguous()
 
             # normalized inverse depth for the in-aggregation depth weight
-            x_norm = (1.0 / depth_sample - inv_max) / (inv_min - inv_max)
+            # (no gradient; the hypotheses keep theirs into the regression)
+            x_norm = (1.0 / depth_sample.detach() - inv_max) / (inv_min - inv_max)
             x_norm_img = x_norm.permute(0, 2, 3, 1).contiguous()  # [B, H, W, D]
 
             depth, score, view_weights, feature_weight = self.evaluation(

@@ -1,14 +1,19 @@
-"""Tensor ops of the port: plain PyTorch helpers and the three kernel
-wrappers (K1 `warp_group_corr`, K2 `eval_grid_score`, K3
-`neighbor_group_corr`), each with a `*_reference` plain version."""
+"""Tensor ops of the port: plain PyTorch helpers and the kernel wrappers
+(K1 `warp_group_corr`, K2 `eval_grid_score`, K3 `neighbor_group_corr`, and
+the backward kernels K4 `warp_group_corr_backward` and K5
+`neighbor_group_corr_backward`), each with a `*_reference` plain version."""
 
 from patchmatchnet_torch.ops.eval_tail import eval_grid_score, eval_grid_score_reference
 from patchmatchnet_torch.ops.neighbor_similarity import (
     neighbor_group_corr,
+    neighbor_group_corr_backward,
+    neighbor_group_corr_backward_reference,
     neighbor_group_corr_reference,
 )
 from patchmatchnet_torch.ops.warp_similarity import (
     warp_group_corr,
+    warp_group_corr_backward,
+    warp_group_corr_backward_reference,
     warp_group_corr_reference,
 )
 
@@ -16,7 +21,11 @@ __all__ = [
     "eval_grid_score",
     "eval_grid_score_reference",
     "neighbor_group_corr",
+    "neighbor_group_corr_backward",
+    "neighbor_group_corr_backward_reference",
     "neighbor_group_corr_reference",
     "warp_group_corr",
+    "warp_group_corr_backward",
+    "warp_group_corr_backward_reference",
     "warp_group_corr_reference",
 ]

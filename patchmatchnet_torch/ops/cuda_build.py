@@ -1,8 +1,9 @@
 """Build and load the hand-written CUDA kernels in `patchmatchnet_torch/csrc/`.
 
-All `csrc/*.cu` files compile with one `nvcc` call into one shared library
-with a plain C interface (no PyTorch headers, so the build takes seconds),
-loaded with ctypes. The build runs at first use, never at import, into
+Each `csrc/*.cu` file compiles in its own `nvcc` process, all started
+together, and one more `nvcc` call links the objects into one shared
+library with a plain C interface (no PyTorch headers, so the build takes
+seconds), loaded with ctypes. The build runs at first use, never at import, into
 `<repo>/build/kernels/<hash>/` where the hash covers the sources and the
 flags; a finished build is reused by later processes.
 
@@ -27,10 +28,8 @@ import torch
 
 CSRC = Path(__file__).resolve().parents[1] / "csrc"
 BUILD_ROOT = Path(__file__).resolve().parents[2] / "build" / "kernels"
-NVCC_FLAGS = (
-    "-gencode", "arch=compute_90a,code=sm_90a",
-    "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
-)
+ARCH_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a")
+NVCC_FLAGS = ARCH_FLAGS + ("-std=c++17", "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -43,6 +42,10 @@ _SIGNATURES = {
     "pmn_neighbor_group_corr": [_P, _P, _P, _P] + [_I] * 7 + [_P],
     # xnorm, cost, gx, gy, fw, out, B, K, H, W, D, inv_interval, cost_bf16, stream
     "pmn_eval_grid_score": [_P] * 6 + [_I] * 5 + [_F, _I, _P],
+    # src, ref, mat12, depth, dout, d_src, d_ref, B, D, H, W, Hs, Ws, C, G, bf16, stream
+    "pmn_warp_group_corr_backward": [_P] * 7 + [_I] * 9 + [_P],
+    # ref, gx, gy, dout, d_gx, d_gy, B, K, H, W, C, G, bf16, stream
+    "pmn_neighbor_group_corr_backward": [_P] * 6 + [_I] * 7 + [_P],
 }
 
 _lock = threading.Lock()
@@ -67,7 +70,7 @@ def _nvcc() -> str:
 
 
 def library_path() -> Path:
-    digest = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    digest = hashlib.sha256(" ".join(NVCC_FLAGS + ("-shared",)).encode())
     for src in _sources():
         digest.update(src.name.encode())
         digest.update(src.read_bytes())
@@ -76,14 +79,29 @@ def library_path() -> Path:
 
 def _build(out: Path) -> None:
     out.parent.mkdir(parents=True, exist_ok=True)
-    tmp = out.with_name(f"{out.name}.{os.getpid()}.tmp")
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp)]
-    cmd += [str(p) for p in _sources() if p.suffix == ".cu"]
+    tag = f"{os.getpid()}.tmp"
+    tmp = out.with_name(f"{out.name}.{tag}")
     start = time.perf_counter()
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    if proc.returncode != 0:
-        raise RuntimeError(f"nvcc failed ({proc.returncode}):\n{proc.stderr}")
-    (out.parent / "nvcc.log").write_text(proc.stdout + proc.stderr)
+    sources = [p for p in _sources() if p.suffix == ".cu"]
+    objects = [out.with_name(f"{p.stem}.{tag}.o") for p in sources]
+    procs = [
+        subprocess.Popen([_nvcc(), *NVCC_FLAGS, "-c", str(src), "-o", str(obj)],
+                         stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+        for src, obj in zip(sources, objects)
+    ]
+    logs = [proc.communicate()[0] for proc in procs]  # waits for every process
+    try:
+        for src, proc, log in zip(sources, procs, logs):
+            if proc.returncode != 0:
+                raise RuntimeError(f"nvcc failed on {src.name} ({proc.returncode}):\n{log}")
+        link = subprocess.run([_nvcc(), *ARCH_FLAGS, "-shared", "-o", str(tmp),
+                               *map(str, objects)], capture_output=True, text=True)
+        if link.returncode != 0:
+            raise RuntimeError(f"nvcc link failed ({link.returncode}):\n{link.stderr}")
+    finally:
+        for obj in objects:
+            obj.unlink(missing_ok=True)
+    (out.parent / "nvcc.log").write_text("".join(logs))
     os.replace(tmp, out)  # atomic: a concurrent build never sees a partial file
     global _build_seconds
     _build_seconds = time.perf_counter() - start

@@ -10,6 +10,10 @@ Replaces `patchmatchnet_tpu/ops/pallas/eval_tail.py` `_kernel` (API
 
 where x_k, c_k are border, align_corners=False bilinear samples of the
 normalized inverse depth and the cost at the K eval-grid neighbours.
+
+K2 has no backward kernel (nor has the reference). Training runs the
+plain version `eval_grid_score_reference` on every device, as the
+reference's training tail is plain XLA.
 """
 
 from __future__ import annotations
@@ -29,14 +33,22 @@ def eval_grid_score_reference(
     feature_weight: torch.Tensor, interval_scale: float,
 ) -> torch.Tensor:
     """Plain PyTorch version (`F.grid_sample` of [x_norm | cost]); same
-    arguments and result as `eval_grid_score`."""
+    arguments and result as `eval_grid_score`. It is also the training tail
+    (reference: `patchmatch.py` `Evaluation`, the unfused branch): x_norm and
+    the depth weight carry no gradient, so the grid learns only through the
+    sampled cost and the feature weights through the normalized weight.
+    x_norm is sampled in f32 (the reference's bf16 hi/lo split only
+    preserves f32 precision through bf16 payloads)."""
     d = x_norm_img.shape[-1]
-    joint = torch.cat([x_norm_img.float(), cost_img.float()], dim=-1)
+    joint = torch.cat([x_norm_img.detach().float(), cost_img.float()], dim=-1)
     sampled = grid_sample_2d(joint, grid, align_corners=False, padding_mode="border")
     x_smp, c_smp = sampled[..., :d], sampled[..., d:]  # [B, Ke, H, W, D]
-    diff = (x_smp - x_norm_img[:, None]).abs() * (1.0 / interval_scale)
-    wk = torch.sigmoid(4.0 - 2.0 * diff.clamp(0.0, 4.0)) * feature_weight[..., None]
-    return (wk * c_smp).sum(dim=1) / wk.sum(dim=1)
+    with torch.no_grad():
+        diff = (x_smp - x_norm_img[:, None]).abs() / interval_scale
+        dw = torch.sigmoid(4.0 - 2.0 * diff.clamp(0.0, 4.0))
+    weight = dw * feature_weight[..., None]
+    weight = weight / weight.sum(dim=1, keepdim=True)
+    return (c_smp * weight).sum(dim=1)
 
 
 def eval_grid_score(

@@ -7,11 +7,18 @@ sit in the depth slot, samples are align_corners=False with border
 clamping. The CUDA kernel is `csrc/group_corr.cu`
 (`pmn_neighbor_group_corr`), sharing K1's tap/correlate code with grid
 coordinates; the [P, 4C] taps the TPU path gathers first never exist.
+
+Gradients flow to the grid only. The reference detaches the feature it
+feeds here (`patchmatch.py` `ref_sg`), so the wrapper raises when `ref`
+requires grad rather than drop that gradient. On CUDA the backward is K5
+(`csrc/group_corr_bwd.cu`, `pmn_neighbor_group_corr_backward`), replacing
+`similarity_kernel.py` `_bwd_kernel`; on the CPU it is autograd through the
+plain version.
 """
 
 from __future__ import annotations
 
-from typing import Sequence
+from typing import Sequence, Tuple
 
 import torch
 
@@ -39,23 +46,7 @@ def neighbor_group_corr_reference(
     return torch.einsum("bkhwc,cg->bgkhw", prod, gm)
 
 
-def neighbor_group_corr(
-    ref: torch.Tensor, grid: Sequence[torch.Tensor], groups: int
-) -> torch.Tensor:
-    """Args:
-        ref: [B, H, W, C] reference features (bf16 or f32).
-        grid: (gx, gy), each [B, Ke, H, W] f32 normalized eval-grid
-            coordinates (align_corners=False convention).
-        groups: G, dividing C.
-    Returns:
-        [B, G, Ke, H, W] f32 correlation.
-
-    CPU tensors run the plain version; CUDA tensors launch the kernel, and
-    anything the kernel does not take raises.
-    """
-    if ref.device.type == "cpu":
-        return neighbor_group_corr_reference(ref, grid, groups)
-    gx, gy = grid
+def _check_inputs(ref, gx, gy, groups):
     b, h, w, c = ref.shape
     ke = gx.shape[1]
     if (c, groups) not in SUPPORTED_CHANNELS_GROUPS:
@@ -67,13 +58,97 @@ def neighbor_group_corr(
     check("ref", ref, dev, _PAYLOAD_DTYPES, (b, h, w, c))
     check("gx", gx, dev, (torch.float32,), (b, ke, h, w))
     check("gy", gy, dev, (torch.float32,), (b, ke, h, w))
-    out = torch.empty((b, groups, ke, h, w), dtype=torch.float32, device=dev)
+    return b, ke, h, w, c
+
+
+class _NeighborGroupCorr(torch.autograd.Function):
+    """K3 forward, K5 backward; gradient to the grid only."""
+
+    @staticmethod
+    def forward(ctx, ref, gx, gy, groups):
+        b, ke, h, w, c = _check_inputs(ref, gx, gy, groups)
+        ctx.save_for_backward(ref, gx, gy)
+        ctx.groups = groups
+        dev = ref.device
+        out = torch.empty((b, groups, ke, h, w), dtype=torch.float32, device=dev)
+        lib = cuda_build.kernel_library()
+        with torch.cuda.device(dev):
+            rc = lib.pmn_neighbor_group_corr(
+                ref.data_ptr(), gx.data_ptr(), gy.data_ptr(), out.data_ptr(),
+                b, ke, h, w, c, groups, int(ref.dtype == torch.bfloat16),
+                cuda_build.stream_handle(dev),
+            )
+        cuda_build.check_launch("neighbor_group_corr", rc)
+        return out
+
+    @staticmethod
+    def backward(ctx, dout):
+        ref, gx, gy = ctx.saved_tensors
+        d_gx, d_gy = neighbor_group_corr_backward(ref, (gx, gy), ctx.groups,
+                                                  dout.contiguous())
+        return None, d_gx, d_gy, None
+
+
+def neighbor_group_corr(
+    ref: torch.Tensor, grid: Sequence[torch.Tensor], groups: int
+) -> torch.Tensor:
+    """Args:
+        ref: [B, H, W, C] reference features (bf16 or f32), not requiring
+            grad (raises otherwise).
+        grid: (gx, gy), each [B, Ke, H, W] f32 normalized eval-grid
+            coordinates (align_corners=False convention).
+        groups: G, dividing C.
+    Returns:
+        [B, G, Ke, H, W] f32 correlation, differentiable with respect to the
+        grid.
+
+    CPU tensors run the plain version; CUDA tensors launch the kernel (and
+    K5 in backward), and anything the kernel does not take raises.
+    """
+    if ref.requires_grad and torch.is_grad_enabled():
+        raise ValueError("neighbor_group_corr: ref must be detached (the gradient "
+                         "flows to the grid only, as in the reference)")
+    if ref.device.type == "cpu":
+        return neighbor_group_corr_reference(ref, grid, groups)
+    gx, gy = grid
+    return _NeighborGroupCorr.apply(ref, gx, gy, groups)
+
+
+def neighbor_group_corr_backward_reference(
+    ref: torch.Tensor, grid: Sequence[torch.Tensor], groups: int, dout: torch.Tensor
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Plain PyTorch version of K5: autograd through
+    `neighbor_group_corr_reference` with respect to the grid. Same
+    arguments and result as `neighbor_group_corr_backward`."""
+    with torch.enable_grad():
+        gx, gy = (g.detach().requires_grad_(True) for g in grid)
+        out = neighbor_group_corr_reference(ref.detach(), (gx, gy), groups)
+        return torch.autograd.grad(out, (gx, gy), dout)
+
+
+def neighbor_group_corr_backward(
+    ref: torch.Tensor, grid: Sequence[torch.Tensor], groups: int, dout: torch.Tensor
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Cotangents (d_gx, d_gy), each [B, Ke, H, W] f32, of
+    `neighbor_group_corr` for the incoming `dout` [B, G, Ke, H, W] f32.
+
+    CPU tensors run the plain version; CUDA tensors launch K5, and anything
+    the kernel does not take raises.
+    """
+    if ref.device.type == "cpu":
+        return neighbor_group_corr_backward_reference(ref, grid, groups, dout)
+    gx, gy = grid
+    b, ke, h, w, c = _check_inputs(ref, gx, gy, groups)
+    dev = ref.device
+    cuda_build.check_cuda_tensor("dout", dout, dev, (torch.float32,), (b, groups, ke, h, w))
+    d_gx = torch.empty((b, ke, h, w), dtype=torch.float32, device=dev)
+    d_gy = torch.empty_like(d_gx)
     lib = cuda_build.kernel_library()
     with torch.cuda.device(dev):
-        rc = lib.pmn_neighbor_group_corr(
-            ref.data_ptr(), gx.data_ptr(), gy.data_ptr(), out.data_ptr(),
-            b, ke, h, w, c, groups, int(ref.dtype == torch.bfloat16),
-            cuda_build.stream_handle(dev),
+        rc = lib.pmn_neighbor_group_corr_backward(
+            ref.data_ptr(), gx.data_ptr(), gy.data_ptr(), dout.data_ptr(),
+            d_gx.data_ptr(), d_gy.data_ptr(), b, ke, h, w, c, groups,
+            int(ref.dtype == torch.bfloat16), cuda_build.stream_handle(dev),
         )
-    cuda_build.check_launch("neighbor_group_corr", rc)
-    return out
+    cuda_build.check_launch("neighbor_group_corr_backward", rc)
+    return d_gx, d_gy

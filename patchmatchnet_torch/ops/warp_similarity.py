@@ -10,11 +10,19 @@ bounds it on the card and how it is laid out.
 
 with zeros padding, align_corners=True and the pz <= 1e-3 push. Payloads
 (src, ref) may be bf16 or f32; every operation is f32.
+
+Gradients flow to `src` and `ref` only: the warp coordinates carry none,
+as the reference's warp grid is built under no_grad
+(`windowed_similarity.py` `_wgsp_bwd`). On CUDA the backward is K4
+(`csrc/group_corr_bwd.cu`, `pmn_warp_group_corr_backward`), replacing
+`_kernel_proj_bwd`; on the CPU it is autograd through the plain version.
 """
 
 from __future__ import annotations
 
 import torch
+
+from typing import Tuple
 
 from patchmatchnet_torch.ops import cuda_build
 from patchmatchnet_torch.ops.grid_sample import grid_sample_2d
@@ -52,6 +60,53 @@ def warp_group_corr_reference(
     return torch.einsum("bdhwc,cg->bgdhw", prod, gm)
 
 
+def _check_inputs(src, mat12, depth, ref, groups):
+    b, hs, ws, c = src.shape
+    _, d, h, w = depth.shape
+    if (c, groups) not in SUPPORTED_CHANNELS_GROUPS:
+        raise ValueError(f"warp_group_corr: no kernel for C={c}, G={groups}")
+    dev = src.device
+    check = cuda_build.check_cuda_tensor
+    check("src", src, dev, _PAYLOAD_DTYPES, (b, hs, ws, c))
+    check("ref", ref, dev, (src.dtype,), (b, h, w, c))
+    check("mat12", mat12, dev, (torch.float32,), (b, 12))
+    check("depth", depth, dev, (torch.float32,), (b, d, h, w))
+    return b, d, h, w, hs, ws, c
+
+
+def _launch_forward(src, mat12, depth, ref, groups):
+    b, d, h, w, hs, ws, c = _check_inputs(src, mat12, depth, ref, groups)
+    dev = src.device
+    out = torch.empty((b, groups, d, h, w), dtype=torch.float32, device=dev)
+    lib = cuda_build.kernel_library()
+    with torch.cuda.device(dev):
+        rc = lib.pmn_warp_group_corr(
+            src.data_ptr(), ref.data_ptr(), mat12.data_ptr(), depth.data_ptr(),
+            out.data_ptr(), b, d, h, w, hs, ws, c, groups,
+            int(src.dtype == torch.bfloat16), cuda_build.stream_handle(dev),
+        )
+    cuda_build.check_launch("warp_group_corr", rc)
+    return out
+
+
+class _WarpGroupCorr(torch.autograd.Function):
+    """K1 forward, K4 backward; no gradient to mat12 or depth."""
+
+    @staticmethod
+    def forward(ctx, src, mat12, depth, ref, groups):
+        ctx.save_for_backward(src, mat12, depth, ref)
+        ctx.groups = groups
+        return _launch_forward(src, mat12, depth, ref, groups)
+
+    @staticmethod
+    def backward(ctx, dout):
+        src, mat12, depth, ref = ctx.saved_tensors
+        d_src, d_ref = warp_group_corr_backward(src, mat12, depth, ref, ctx.groups,
+                                                dout.contiguous())
+        need = ctx.needs_input_grad
+        return (d_src if need[0] else None, None, None, d_ref if need[3] else None, None)
+
+
 def warp_group_corr(
     src: torch.Tensor, mat12: torch.Tensor, depth: torch.Tensor,
     ref: torch.Tensor, groups: int,
@@ -66,30 +121,56 @@ def warp_group_corr(
         ref: [B, H, W, C] reference features, same dtype as `src`.
         groups: G, dividing C.
     Returns:
-        [B, G, D, H, W] f32 similarity volume.
+        [B, G, D, H, W] f32 similarity volume, differentiable with respect
+        to `src` and `ref` (never `mat12` or `depth`).
 
-    CPU tensors run the plain version; CUDA tensors launch the kernel, and
-    anything the kernel does not take raises.
+    CPU tensors run the plain version; CUDA tensors launch the kernel (and
+    K4 in backward), and anything the kernel does not take raises.
     """
+    mat12, depth = mat12.detach(), depth.detach()
     if src.device.type == "cpu":
         return warp_group_corr_reference(src, mat12, depth, ref, groups)
-    b, hs, ws, c = src.shape
-    _, d, h, w = depth.shape
-    if (c, groups) not in SUPPORTED_CHANNELS_GROUPS:
-        raise ValueError(f"warp_group_corr: no kernel for C={c}, G={groups}")
+    return _WarpGroupCorr.apply(src, mat12, depth, ref, groups)
+
+
+def warp_group_corr_backward_reference(
+    src: torch.Tensor, mat12: torch.Tensor, depth: torch.Tensor,
+    ref: torch.Tensor, groups: int, dout: torch.Tensor,
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Plain PyTorch version of K4: autograd through
+    `warp_group_corr_reference` with depth and mat12 detached. Same
+    arguments and result as `warp_group_corr_backward`."""
+    with torch.enable_grad():
+        s = src.detach().requires_grad_(True)
+        r = ref.detach().requires_grad_(True)
+        out = warp_group_corr_reference(s, mat12.detach(), depth.detach(), r, groups)
+        d_src, d_ref = torch.autograd.grad(out, (s, r), dout)
+    return d_src, d_ref
+
+
+def warp_group_corr_backward(
+    src: torch.Tensor, mat12: torch.Tensor, depth: torch.Tensor,
+    ref: torch.Tensor, groups: int, dout: torch.Tensor,
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Cotangents (d_src [B, Hs, Ws, C], d_ref [B, H, W, C]), in the payload
+    dtype, of `warp_group_corr` for the incoming `dout` [B, G, D, H, W] f32.
+
+    CPU tensors run the plain version; CUDA tensors launch K4, and anything
+    the kernel does not take raises.
+    """
+    if src.device.type == "cpu":
+        return warp_group_corr_backward_reference(src, mat12, depth, ref, groups, dout)
+    b, d, h, w, hs, ws, c = _check_inputs(src, mat12, depth, ref, groups)
     dev = src.device
-    check = cuda_build.check_cuda_tensor
-    check("src", src, dev, _PAYLOAD_DTYPES, (b, hs, ws, c))
-    check("ref", ref, dev, (src.dtype,), (b, h, w, c))
-    check("mat12", mat12, dev, (torch.float32,), (b, 12))
-    check("depth", depth, dev, (torch.float32,), (b, d, h, w))
-    out = torch.empty((b, groups, d, h, w), dtype=torch.float32, device=dev)
+    cuda_build.check_cuda_tensor("dout", dout, dev, (torch.float32,), (b, groups, d, h, w))
+    d_src = torch.zeros((b, hs, ws, c), dtype=torch.float32, device=dev)
+    d_ref = torch.zeros((b, h, w, c), dtype=torch.float32, device=dev)
     lib = cuda_build.kernel_library()
     with torch.cuda.device(dev):
-        rc = lib.pmn_warp_group_corr(
+        rc = lib.pmn_warp_group_corr_backward(
             src.data_ptr(), ref.data_ptr(), mat12.data_ptr(), depth.data_ptr(),
-            out.data_ptr(), b, d, h, w, hs, ws, c, groups,
-            int(src.dtype == torch.bfloat16), cuda_build.stream_handle(dev),
+            dout.data_ptr(), d_src.data_ptr(), d_ref.data_ptr(), b, d, h, w, hs, ws, c,
+            groups, int(src.dtype == torch.bfloat16), cuda_build.stream_handle(dev),
         )
-    cuda_build.check_launch("warp_group_corr", rc)
-    return out
+    cuda_build.check_launch("warp_group_corr_backward", rc)
+    return d_src.to(src.dtype), d_ref.to(ref.dtype)

@@ -57,6 +57,7 @@ def test_port_imports_no_jax():
         "import importlib, sys\n"
         "import patchmatchnet_torch, patchmatchnet_torch.compat, patchmatchnet_torch.ops\n"
         "import patchmatchnet_torch.models, patchmatchnet_torch.infer, patchmatchnet_torch.data\n"
+        "import patchmatchnet_torch.train, patchmatchnet_torch.utils, patchmatchnet_torch.config\n"
         f"for m in {modules!r}:\n"
         "    importlib.import_module(m)\n"
         "import chip_smoke\n"

@@ -60,6 +60,69 @@ def test_warp_and_neighbor_kernels_match_plain(device, dtype, c, g):
         assert after.get(name, 0) == before.get(name, 0) + 1
 
 
+def _close_to_max(got, want, bound):
+    """max |got - want| <= bound * max |want| (f32 sums in another order;
+    the source gradient's atomics make it non-deterministic)."""
+    scale = want.float().abs().max()
+    assert scale > 0
+    err = (got.float() - want.float()).abs().max()
+    assert err <= bound * scale, (err.item(), scale.item())
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("c,g", [(16, 4), (32, 8), (64, 8)])
+@pytest.mark.parametrize("b,d,h,w", [(1, 6, 20, 36), (2, 11, 13, 17)])
+def test_backward_kernels_match_plain(device, dtype, c, g, b, d, h, w):
+    """K4 (d_src, d_ref) and K5 (d_gx, d_gy) vs autograd through the plain
+    forwards: samples behind the camera (depth < 0), off the image and
+    clamped at the border; D that is not a multiple of the kernel's depth
+    chunk; launches counted once each."""
+    src, ref, mat12, depth, grid, gen = _case(device, c, d, h, w, dtype)
+    if b > 1:
+        src, ref, depth = (t.expand(b, *t.shape[1:]).contiguous() for t in (src, ref, depth))
+        mat12 = mat12.expand(b, 12).contiguous()
+        grid = tuple(t.expand(b, *t.shape[1:]).contiguous() for t in grid)
+    dout = torch.randn((b, g, d, h, w), generator=gen, device=device)
+    bound = 1e-3 if dtype == torch.float32 else 1e-2
+    before = cuda_build.launch_counts()
+    got = ops.warp_group_corr_backward(src, mat12, depth, ref, g, dout)
+    want = ops.warp_group_corr_backward_reference(src, mat12, depth, ref, g, dout)
+    for x, y in zip(got, want):
+        assert x.dtype == dtype and x.shape == y.shape
+        _close_to_max(x, y, bound)
+    dout = torch.randn((b, g, 9, h, w), generator=gen, device=device)
+    got = ops.neighbor_group_corr_backward(ref, grid, g, dout)
+    want = ops.neighbor_group_corr_backward_reference(ref, grid, g, dout)
+    for x, y in zip(got, want):
+        _close_to_max(x, y, 1e-3)
+    after = cuda_build.launch_counts()
+    for name in ("warp_group_corr_backward", "neighbor_group_corr_backward"):
+        assert after.get(name, 0) == before.get(name, 0) + 1
+
+
+def test_autograd_runs_the_backward_kernels(device):
+    """Autograd through the wrappers launches K4 and K5; depth gets no
+    gradient; a reference feature with grad is refused by K3."""
+    src, ref, mat12, depth, grid, gen = _case(device, 32, 5, 16, 24, torch.bfloat16)
+    src.requires_grad_(True)
+    ref.requires_grad_(True)
+    depth.requires_grad_(True)
+    gx, gy = (t.detach().requires_grad_(True) for t in grid)
+    before = cuda_build.launch_counts()
+    loss = ops.warp_group_corr(src, mat12, depth, ref, 8).square().sum()
+    loss = loss + ops.neighbor_group_corr(ref.detach(), (gx, gy), 8).square().sum()
+    loss.backward()
+    after = cuda_build.launch_counts()
+    for name in ("warp_group_corr", "warp_group_corr_backward", "neighbor_group_corr",
+                 "neighbor_group_corr_backward"):
+        assert after.get(name, 0) == before.get(name, 0) + 1, name
+    assert depth.grad is None
+    assert src.grad.dtype == torch.bfloat16 and torch.isfinite(src.grad.float()).all()
+    assert torch.isfinite(gx.grad).all() and gx.grad.abs().sum() > 0
+    with pytest.raises(ValueError, match="detached"):
+        ops.neighbor_group_corr(ref, grid, 8)
+
+
 @pytest.mark.parametrize("cost_dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("d", [8, 12, 64])
 def test_eval_grid_score_kernel_matches_plain(device, cost_dtype, d):
