@@ -7,24 +7,32 @@ result line:
 
 1. device: a CUDA device is required; prints `nvidia-smi` name/power limit.
 2. build: compiles `patchmatchnet_torch/csrc/*.cu` with nvcc (sm_90a).
-3. kernel parity: K1, K2 and K3 against their plain PyTorch versions on
-   the card, at the main path's stage shapes, with bf16 and f32 payloads;
-   kernel and plain times (median of CUDA-event timings).
+3. kernel parity: K1, K2, K3, K6 and K7 against their plain PyTorch
+   versions on the card, at the main paths' stage shapes, with bf16 and
+   f32 payloads; kernel and plain times (median of CUDA-event timings) and
+   each kernel's bound (the larger of its bytes over the card's memory
+   rate and its f32 operations over its f32 rate). K6 also against the
+   per-view route it replaces (4 K1 launches and the weighted sum), K7 on
+   the warp coordinates against K1.
 4. f32 golden parity: the f32 model (kernels on, TF32 off) against the
    captured reference outputs in tests/golden/.
 5. main path: a 1152x864, 5-view synthetic scene through MVSDataset ->
    bf16 DepthEstimator -> save_depth_maps; checks finite maps, the GT
-   error and the per-request kernel launch counts; reports ms per map,
-   MPix/s and peak device memory.
-6. backward-kernel parity: K4 and K5 against their plain versions
+   error and the per-request kernel launch counts (K1 4 / K6 4 / K2 5 /
+   K3 3); reports ms per map, MPix/s and peak device memory.
+6. coordinate-input path: a plane sweep through `coord_group_corr` (K7) on
+   the scene's bf16 features at each stage's resolution, C and G (D 64, 16,
+   8; 4 source views): K7 launches, K7 against K1 on the same
+   coordinates, and the winner-take-all depth against the plane.
+7. backward-kernel parity: K4 and K5 against their plain versions
    (autograd through the plain forwards) at the training stage shapes of
    640x512, B=2, bf16 and f32 payloads; errors relative to the largest
    gradient entry; kernel and plain backward times per launch and per
    train step.
-7. f32 train-step parity: one f32 train step (kernels on, TF32 off) on a
+8. f32 train-step parity: one f32 train step (kernels on, TF32 off) on a
    64x80, 3-view plane batch against the same step on the CPU (plain
    versions): loss and per-leaf gradient cosine, and the step's launches.
-8. training path: bf16 at 640x512, N=5, B=2 on a 12-view synthetic plane
+9. training path: bf16 at 640x512, N=5, B=2 on a 12-view synthetic plane
    scene with depth_gt, warm-started from params_000007: one warm-up step
    and 6 timed train steps (finite losses, launches per step K1 20 / K4 20
    / K3 3 / K5 3 / K2 0, ms per step, samples/s, peak memory; a
@@ -54,8 +62,14 @@ import time
 REPO = os.path.dirname(os.path.abspath(__file__))
 CKPT = os.path.join(REPO, "checkpoints", "params_000007.msgpack")
 MAIN_H, MAIN_W, MAIN_VIEWS, REQUESTS = 864, 1152, 5, 5
-# per-forward launches of each kernel on the bf16 main path
-EXPECTED_PER_FORWARD = {"warp_group_corr": 20, "eval_grid_score": 5, "neighbor_group_corr": 3}
+# per-forward launches of each kernel on the bf16 main path: K1 on stage
+# 3's first evaluation (one per source view), K6 on every later one
+EXPECTED_PER_FORWARD = {"warp_group_corr": 4, "warp_group_corr_views": 4,
+                        "eval_grid_score": 5, "neighbor_group_corr": 3}
+# plane sweep of the coordinate-input path: stage -> hypotheses
+SWEEP_DEPTHS = {3: 64, 2: 16, 1: 8}
+# the source views' x baselines of the parity rig (the first is the reference)
+RIG_BASELINES = (0.0, 0.35, -0.35, 0.7, -0.7)
 # training geometry (the JAX trainer's DTU configuration)
 TRAIN_H, TRAIN_W, TRAIN_VIEWS, TRAIN_BATCH, TRAIN_SCENE_VIEWS = 512, 640, 5, 2, 12
 TIMED_STEPS = 6
@@ -74,11 +88,16 @@ KERNEL_INFO = {
                                  "patchmatchnet_tpu/ops/pallas/windowed_similarity.py:743"),
     "neighbor_group_corr_backward": ("patchmatchnet_torch/csrc/group_corr_bwd.cu",
                                      "patchmatchnet_tpu/ops/pallas/similarity_kernel.py:187"),
+    "warp_group_corr_views": ("patchmatchnet_torch/csrc/group_corr.cu",
+                              "patchmatchnet_tpu/ops/pallas/windowed_similarity.py:942"),
+    "coord_group_corr": ("patchmatchnet_torch/csrc/group_corr.cu",
+                         "patchmatchnet_tpu/ops/pallas/windowed_similarity.py:375"),
 }
-INFERENCE_KERNELS = ("warp_group_corr", "eval_grid_score", "neighbor_group_corr")
+INFERENCE_KERNELS = ("warp_group_corr", "eval_grid_score", "neighbor_group_corr",
+                     "warp_group_corr_views", "coord_group_corr")
 BACKWARD_KERNELS = ("warp_group_corr_backward", "neighbor_group_corr_backward")
 # Kernel vs plain version: the same f32 math in another summation order.
-# K1/K3: the plain version goes through F.grid_sample's normalized
+# K1/K3/K6/K7: the plain version goes through F.grid_sample's normalized
 # coordinates, which moves a sample by up to ~1 ulp of its pixel coordinate
 # (6e-5 px at x ~ 500) against per-pixel feature jumps of O(1) in these
 # random inputs. K2: that shift of the sampled x_norm (random per pixel, so
@@ -92,6 +111,77 @@ def parity_tol(name: str, interval: float):
     if name == "eval_grid_score":
         return 2e-5 / interval, 2e-5
     return 2e-3, 2e-5
+
+
+# The card's peak rates for the bound of a kernel (NVIDIA H100 SXM data
+# sheet): device memory 3.35 TB/s; f32 outside the tensor cores 67 TFLOP/s.
+# Every hand kernel computes in f32 on the CUDA cores.
+MEMORY_BYTES_PER_S = 3.35e12
+F32_OPS_PER_S = 67e12
+
+
+def nbytes(*tensors) -> int:
+    return sum(t.numel() * t.element_size() for t in tensors)
+
+
+def sample_ops(c: int) -> int:
+    """f32 operations to reduce one sample of a C-channel map (K1, K3, K7):
+    4 bilinear taps x C multiply-adds, C multiply-adds with the reference,
+    and ~24 for the cell, the weights and the group scaling."""
+    return 10 * c + 24
+
+
+def kernel_work(name: str, args, out) -> tuple:
+    """(bytes, operations) one call of kernel `name` must do on these
+    inputs: each input read once and each output written once, and its
+    f32 arithmetic (a multiply-add is 2 operations)."""
+    if name == "warp_group_corr":  # src, mat12, depth, ref, g
+        src, _, depth, _, _ = args
+        return nbytes(*args[:4], out), depth.numel() * sample_ops(src.shape[-1])
+    if name == "coord_group_corr":  # src, ix, iy, ref, g
+        src, ix, _, _, _ = args
+        return nbytes(*args[:4], out), ix.numel() * sample_ops(src.shape[-1])
+    if name == "warp_group_corr_views":  # src [B,V,...], mats, depth, ref, vw, g
+        src, _, depth, _, _, g = args
+        per_view = sample_ops(src.shape[-1]) + 2 * g  # and the weighted sum
+        return nbytes(*args[:5], out), depth.numel() * src.shape[1] * per_view
+    if name == "neighbor_group_corr":  # ref, (gx, gy), g
+        ref, (gx, gy), _ = args
+        return nbytes(ref, gx, gy, out), gx.numel() * sample_ops(ref.shape[-1])
+    if name == "eval_grid_score":  # x_norm, cost, (gx, gy), fw, interval
+        x_norm, cost, (gx, gy), fw, _ = args
+        # per (pixel, hypothesis, neighbour): 2 four-tap samples, the
+        # sigmoid weight and the two sums, ~40 operations
+        return nbytes(x_norm, cost, gx, gy, fw, out), x_norm.numel() * gx.shape[1] * 40
+    if name == "warp_group_corr_backward":  # src, mat12, depth, ref, g, dout
+        src, _, depth, _, _, dout = args
+        return (nbytes(*args[:4], dout, *out),
+                depth.numel() * (2 * sample_ops(src.shape[-1])))
+    if name == "neighbor_group_corr_backward":  # ref, (gx, gy), g, dout
+        ref, (gx, gy), _, dout = args
+        return nbytes(ref, gx, gy, dout, *out), gx.numel() * (sample_ops(ref.shape[-1]) + 8)
+    raise KeyError(name)
+
+
+def bound(work_bytes: float, work_ops: float):
+    """(ms, "bytes" or "operations"): the least time the card could take."""
+    by_bytes = work_bytes / MEMORY_BYTES_PER_S * 1e3
+    by_ops = work_ops / F32_OPS_PER_S * 1e3
+    return (by_bytes, "bytes") if by_bytes >= by_ops else (by_ops, "operations")
+
+
+def new_summary(names):
+    return {name: {"max_abs_err": 0.0, "ms": 0.0, "plain_ms": 0.0, "bytes": 0, "ops": 0}
+            for name in names}
+
+
+def add_time(entry, name, args, out, launches, ms, plain_ms):
+    """Add `launches` calls of `name` at these inputs to a summary entry."""
+    work_bytes, work_ops = kernel_work(name, args, out)
+    entry["ms"] += ms * launches
+    entry["plain_ms"] += plain_ms * launches
+    entry["bytes"] += work_bytes * launches
+    entry["ops"] += work_ops * launches
 
 
 def fail(msg: str) -> None:
@@ -122,30 +212,42 @@ def time_ms(fn, reps: int = 20, warmup: int = 3) -> float:
     return statistics.median(times)
 
 
-def stage_cameras(h: int, w: int, scale: float):
-    """Reference and source projections [1, 2, 4, 4] of the synthetic-scene
-    rig (identity rotations, x baseline 0.35) at 1/scale of the main
-    resolution."""
-    return rig_cameras(h, w, 1.1 * max(MAIN_H, MAIN_W) / scale)
-
-
-def rig_cameras(h: int, w: int, f: float):
-    """Projections [1, 2, 4, 4] of the rig at focal length `f` for an h x w
-    image."""
+def rig_cameras(h: int, w: int, f: float, baselines=RIG_BASELINES[:2]):
+    """Projections [1, len(baselines), 4, 4] of the rig at focal length `f`
+    for an h x w image, one camera per x baseline."""
     import torch
 
     k = torch.tensor([[f, 0, w / 2.0], [0, f, h / 2.0], [0, 0, 1]])
     projs = []
-    for tx in (0.0, 0.35):
+    for tx in baselines:
         p = torch.eye(4)
         p[:3, :4] = k @ torch.tensor([[1.0, 0, 0, tx], [0, 1, 0, 0], [0, 0, 1, 0]])
         projs.append(p)
     return torch.stack(projs)[None]
 
 
+def per_view_route(src, mats, depth, ref, view_weights, groups):
+    """What K6 replaces, its reference on the card: K1 per source view, each
+    volume times its weights, added to a zeroed sum in view order (as
+    models/patchmatch.py `Evaluation` does where K6 cannot run)."""
+    import torch
+
+    from patchmatchnet_torch import ops
+
+    b, _, h, w = view_weights.shape
+    out = torch.zeros((b, groups, depth.shape[1], h, w), dtype=torch.float32,
+                      device=src.device)
+    for v in range(src.shape[1]):
+        sim = ops.warp_group_corr(src[:, v], mats[:, v].contiguous(), depth, ref, groups)
+        out = out + sim * view_weights[:, v, None, None]
+    return out
+
+
 def kernel_parity(device):
-    """Phase 3: returns {kernel: {"max_abs_err", "ms", "plain_ms"}} with times
-    summed over the kernel's per-forward launches (bf16 payloads)."""
+    """Phase 3: returns {kernel: {"max_abs_err", "ms", "plain_ms", "bytes",
+    "ops"}} with times and work summed over the kernel's launches per
+    pass of its path (bf16 payloads): a forward of the main path for K1,
+    K2, K3 and K6, a plane sweep for K7."""
     import torch
 
     from patchmatchnet_torch import ops
@@ -154,19 +256,21 @@ def kernel_parity(device):
         build_offset_grid,
         evaluation_offsets,
     )
-    from patchmatchnet_torch.ops.warp import warp_proj_coeffs
+    from patchmatchnet_torch.ops.warp import warp_coords, warp_proj_coeffs
 
     gen = torch.Generator(device=device).manual_seed(0)
-    # (stage, C, G, [(D, launches per forward of K1)], K2 depth counts)
+    # (stage, C, G, scale, [(D, launches per forward of K1, of K2)],
+    #  [(D, launches per forward of K6)])
     stages = [
-        (3, 64, 8, 8, [(64, 4), (32, 4)]),
-        (2, 32, 8, 4, [(16, 8)]),
-        (1, 16, 4, 2, [(8, 4)]),
+        (3, 64, 8, 8, [(64, 4, 1), (32, 0, 1)], [(32, 1)]),
+        (2, 32, 8, 4, [(16, 0, 2)], [(16, 2)]),
+        (1, 16, 4, 2, [(8, 0, 1)], [(8, 1)]),
     ]
-    summary = {name: {"max_abs_err": 0.0, "ms": 0.0, "plain_ms": 0.0}
-               for name in INFERENCE_KERNELS}
+    summary = new_summary(INFERENCE_KERNELS)
+    route = {"ms": 0.0, "max_abs_diff": 0.0}  # K6 against the per-view route
+    k7_vs_k1 = [0.0]
 
-    def record(name, label, got, want, launches, fn, plain_fn, interval):
+    def record(name, label, args, got, want, launches, timed, fn, plain_fn, interval):
         err = (got - want).abs()
         max_abs, mean_abs = err.max().item(), err.mean().item()
         tol_max, tol_mean = parity_tol(name, interval)
@@ -174,50 +278,96 @@ def kernel_parity(device):
         line = f"{name} {label}: max_abs {max_abs:.3e} mean_abs {mean_abs:.3e}"
         s = summary[name]
         s["max_abs_err"] = max(s["max_abs_err"], max_abs)
-        if fn is not None:
+        if timed and launches:
             ms, plain_ms = time_ms(fn), time_ms(plain_fn)
-            s["ms"] += ms * launches
-            s["plain_ms"] += plain_ms * launches
-            line += f" | kernel {ms:.4f} ms plain {plain_ms:.4f} ms (x{launches}/forward)"
+            add_time(s, name, args, got, launches, ms, plain_ms)
+            work_ms, by = bound(*kernel_work(name, args, got))
+            line += (f" | kernel {ms:.4f} ms plain {plain_ms:.4f} ms bound {work_ms:.4f} ms "
+                     f"({by}) (x{launches}/pass)")
         print(line, flush=True)
         if not ok:
             fail(f"{name} {label} exceeds max {tol_max} / mean {tol_mean}")
 
-    for stage, c, g, scale, k1_depths in stages:
+    for stage, c, g, scale, k1_depths, k6_depths in stages:
         h, w = MAIN_H // scale, MAIN_W // scale
         cfg = STAGE_CONFIG[stage]
-        projs = stage_cameras(h, w, scale).to(device)
-        mat12 = warp_proj_coeffs(projs[:, 1], projs[:, 0]).contiguous()
+        projs = rig_cameras(h, w, 1.1 * max(MAIN_H, MAIN_W) / scale, RIG_BASELINES).to(device)
+        mats = warp_proj_coeffs(projs[:, 1:], projs[:, :1]).contiguous()  # [1, 4, 12]
+        mat12 = mats[:, 0].contiguous()
         offset = torch.randn((1, h, w, 18), generator=gen, device=device) * 2.0
         grid = build_offset_grid(offset, evaluation_offsets(cfg.propagation_range), h, w)
-        feats = torch.randn((2, 1, h, w, c), generator=gen, device=device)
+        feats = torch.randn((1, 1 + mats.shape[1], h, w, c), generator=gen, device=device)
+        vw = torch.rand((1, mats.shape[1], h, w), generator=gen, device=device)
         fw = torch.rand((1, 9, h, w), generator=gen, device=device) * 0.9 + 0.1
         for dtype in (torch.bfloat16, torch.float32):
             timed = dtype == torch.bfloat16
             tag = "bf16" if timed else "f32"
-            ref, src = feats[0].to(dtype), feats[1].to(dtype)
-            for d, launches in k1_depths:
+            ref, src = feats[:, 0].to(dtype), feats[:, 1].to(dtype)
+            stack = feats[:, 1:].to(dtype).contiguous()
+            for i, (d, launches, _) in enumerate(k1_depths):
                 depth = 4.8 + 3.0 * torch.rand((1, d, h, w), generator=gen, device=device)
                 depth[:, -1, :4] = -1.0  # behind the source camera: pz <= 1e-3
                 args = (src, mat12, depth, ref, g)
-                record("warp_group_corr", f"stage{stage} C{c} G{g} D{d} {h}x{w} {tag}",
-                       ops.warp_group_corr(*args), ops.warp_group_corr_reference(*args),
-                       launches, (lambda: ops.warp_group_corr(*args)) if timed else None,
+                label = f"stage{stage} C{c} G{g} D{d} {h}x{w} {tag}"
+                k1 = ops.warp_group_corr(*args)
+                record("warp_group_corr", label, args, k1, ops.warp_group_corr_reference(*args),
+                       launches, timed, lambda: ops.warp_group_corr(*args),
                        lambda: ops.warp_group_corr_reference(*args), cfg.interval_scale)
+                # K7 on the warp coordinates is K1; on jittered coordinates
+                # (off-image too) it is held against its plain version
+                ix, iy = warp_coords(mat12, depth, h, w)
+                same = (ops.coord_group_corr(src, ix, iy, ref, g) - k1).abs().max().item()
+                k7_vs_k1[0] = max(k7_vs_k1[0], same)
+                jx = ix + 1.5 * torch.randn(ix.shape, generator=gen, device=device)
+                jy = iy + 1.5 * torch.randn(iy.shape, generator=gen, device=device)
+                args = (src, jx, jy, ref, g)
+                record("coord_group_corr", f"{label} (K7 on the warp coordinates: max "
+                       f"|K7 - K1| {same:.3e})", args, ops.coord_group_corr(*args),
+                       ops.coord_group_corr_reference(*args), 4 if i == 0 else 0, timed,
+                       lambda: ops.coord_group_corr(*args),
+                       lambda: ops.coord_group_corr_reference(*args), cfg.interval_scale)
+            for d, launches in k6_depths:
+                depth = 4.8 + 3.0 * torch.rand((1, d, h, w), generator=gen, device=device)
+                depth[:, -1, :4] = -1.0
+                args = (stack, mats, depth, ref, vw, g)
+                got = ops.warp_group_corr_views(*args)
+                diff = (got - per_view_route(*args)).abs().max().item()
+                route["max_abs_diff"] = max(route["max_abs_diff"], diff)
+                label = f"stage{stage} C{c} G{g} D{d} V{mats.shape[1]} {h}x{w} {tag}"
+                if timed:
+                    route_ms = time_ms(lambda: per_view_route(*args))
+                    route["ms"] += route_ms * launches
+                    label += f" (per-view route {route_ms:.4f} ms, max |K6 - route| {diff:.3e})"
+                else:
+                    label += f" (max |K6 - per-view route| {diff:.3e})"
+                record("warp_group_corr_views", label, args, got,
+                       ops.warp_group_corr_views_reference(*args), launches, timed,
+                       lambda: ops.warp_group_corr_views(*args),
+                       lambda: ops.warp_group_corr_views_reference(*args), cfg.interval_scale)
             args = (ref, grid, g)
-            record("neighbor_group_corr", f"stage{stage} C{c} G{g} K9 {h}x{w} {tag}",
+            record("neighbor_group_corr", f"stage{stage} C{c} G{g} K9 {h}x{w} {tag}", args,
                    ops.neighbor_group_corr(*args), ops.neighbor_group_corr_reference(*args),
-                   1, (lambda: ops.neighbor_group_corr(*args)) if timed else None,
+                   1, timed, lambda: ops.neighbor_group_corr(*args),
                    lambda: ops.neighbor_group_corr_reference(*args), cfg.interval_scale)
-            for d, launches in k1_depths:
+            for d, _, launches in k1_depths:
                 x_norm = torch.rand((1, h, w, d), generator=gen, device=device)
                 cost = (torch.randn((1, h, w, d), generator=gen, device=device)).to(dtype)
                 args = (x_norm, cost, grid, fw, cfg.interval_scale)
-                record("eval_grid_score", f"stage{stage} D{d} {h}x{w} cost {tag}",
+                record("eval_grid_score", f"stage{stage} D{d} {h}x{w} cost {tag}", args,
                        ops.eval_grid_score(*args), ops.eval_grid_score_reference(*args),
-                       launches // 4, (lambda: ops.eval_grid_score(*args)) if timed else None,
+                       launches, timed, lambda: ops.eval_grid_score(*args),
                        lambda: ops.eval_grid_score_reference(*args), cfg.interval_scale)
+    k6 = summary["warp_group_corr_views"]
+    print(f"K6 per forward: {k6['ms']:.4f} ms against the per-view route it "
+          f"replaces (16 K1 launches and the weighted sum) {route['ms']:.4f} ms; max |K6 - "
+          f"per-view route| {route['max_abs_diff']:.3e} (bf16 and f32); max |K7 - K1| on the "
+          f"warp coordinates {k7_vs_k1[0]:.3e}", flush=True)
     return summary
+
+
+GOLDEN_CASES = (("forward_96x128", 0.25), ("forward_288x400_n5_dtu", None))
+# (stage, iteration) of the per-stage depths; stage 0 is the refined depth
+STAGES = ((3, 0), (3, 1), (2, 0), (2, 1), (1, 0), (0, 0))
 
 
 def golden_parity(device, model_f32):
@@ -226,7 +376,7 @@ def golden_parity(device, model_f32):
     import numpy as np
     import torch
 
-    for name, conf_max in (("forward_96x128", 0.25), ("forward_288x400_n5_dtu", None)):
+    for name, conf_max in GOLDEN_CASES:
         g = np.load(os.path.join(REPO, "tests", "golden", f"{name}.npz"))
         with torch.inference_mode():
             depth, conf, dp = model_f32(
@@ -238,7 +388,7 @@ def golden_parity(device, model_f32):
                 init_noise=torch.from_numpy(g["noise"]).to(device),
             )
         rng = float(g["depth_max"] - g["depth_min"])
-        for stage, it in ((3, 0), (3, 1), (2, 0), (2, 1), (1, 0), (0, 0)):
+        for stage, it in STAGES:
             diff = np.abs(dp[stage][it].cpu().numpy() - g[f"stage{stage}_iter{it}"])
             print(f"{name} stage{stage} iter{it}: max/range {diff.max() / rng:.3e} "
                   f"mean/range {diff.mean() / rng:.3e}", flush=True)
@@ -255,18 +405,13 @@ def golden_parity(device, model_f32):
             fail(f"{name} confidence max diff {cdiff.max():.3e} >= {conf_max}")
 
 
-def main_path(device, state_dict):
-    """Phase 5: returns the launch counts of the timed requests."""
+def main_path(device, state_dict, scene):
+    """Phase 5: the scene through the bf16 DepthEstimator and
+    save_depth_maps. Returns (the run's launch counts, estimator)."""
     import numpy as np
     import torch
 
-    from patchmatchnet_torch.data import (
-        PLANE_Z,
-        BatchLoader,
-        MVSDataset,
-        make_synthetic_scene,
-        read_pfm,
-    )
+    from patchmatchnet_torch.data import PLANE_Z, BatchLoader, MVSDataset, read_pfm
     from patchmatchnet_torch.infer import DepthEstimator, save_depth_maps
     from patchmatchnet_torch.models import PatchmatchNet
     from patchmatchnet_torch.ops import cuda_build
@@ -288,36 +433,30 @@ def main_path(device, state_dict):
             self.ms.append((time.perf_counter() - start) * 1e3)
             return out
 
-    os.makedirs(os.path.join(REPO, "build"), exist_ok=True)
-    scratch = tempfile.mkdtemp(prefix="smoke_scene_", dir=os.path.join(REPO, "build"))
-    try:
-        make_synthetic_scene(scratch, num_views=MAIN_VIEWS, height=MAIN_H, width=MAIN_W,
-                             texture_scale=8.0)
-        dataset = MVSDataset(scratch, num_views=MAIN_VIEWS - 1, image_extension=".png")
-        if len(dataset) < REQUESTS:
-            fail(f"scene has {len(dataset)} samples, need {REQUESTS}")
-        loader = BatchLoader(dataset, batch_size=1)  # default prefetching loader
-        # warm-up request: cuDNN algorithm selection, allocator growth
-        warm = next(iter(BatchLoader(dataset, batch_size=1, num_threads=1)))
-        estimator(warm, torch.Generator(device=device).manual_seed(123))
-        torch.cuda.synchronize()
-        torch.cuda.reset_peak_memory_stats(device)
-        timed = Timed(estimator)
-        out_dir = os.path.join(scratch, "out")
-        cuda_build.reset_launch_counts()
-        written = save_depth_maps(timed, loader, out_dir, seed=0)
-        counts = cuda_build.launch_counts()
-        peak = torch.cuda.max_memory_allocated(device)
-        if written != REQUESTS:
-            fail(f"wrote {written} depth maps, expected {REQUESTS}")
-        errs = []
-        for i in range(REQUESTS):
-            depth = read_pfm(os.path.join(out_dir, "depth_est", f"{i:08d}.pfm"))[..., 0]
-            if depth.shape != (MAIN_H, MAIN_W) or not np.isfinite(depth).all():
-                fail(f"depth map {i}: shape {depth.shape}, finite {np.isfinite(depth).all()}")
-            errs.append(float(np.median(np.abs(depth - PLANE_Z))))
-    finally:
-        shutil.rmtree(scratch, ignore_errors=True)
+    dataset = MVSDataset(scene, num_views=MAIN_VIEWS - 1, image_extension=".png")
+    if len(dataset) < REQUESTS:
+        fail(f"scene has {len(dataset)} samples, need {REQUESTS}")
+    loader = BatchLoader(dataset, batch_size=1)  # default prefetching loader
+    # warm-up request: cuDNN algorithm selection, allocator growth
+    warm = next(iter(BatchLoader(dataset, batch_size=1, num_threads=1)))
+    estimator(warm, torch.Generator(device=device).manual_seed(123))
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(device)
+    timed = Timed(estimator)
+    out_dir = tempfile.mkdtemp(prefix="out_", dir=scene)
+    cuda_build.reset_launch_counts()
+    written = save_depth_maps(timed, loader, out_dir, seed=0)
+    counts = cuda_build.launch_counts()
+    peak = torch.cuda.max_memory_allocated(device)
+    if written != REQUESTS:
+        fail(f"wrote {written} depth maps, expected {REQUESTS}")
+    errs = []
+    for i in range(REQUESTS):
+        depth = read_pfm(os.path.join(out_dir, "depth_est", f"{i:08d}.pfm"))[..., 0]
+        if depth.shape != (MAIN_H, MAIN_W) or not np.isfinite(depth).all():
+            fail(f"depth map {i}: shape {depth.shape}, finite {np.isfinite(depth).all()}")
+        errs.append(float(np.median(np.abs(depth - PLANE_Z))))
+    shutil.rmtree(out_dir, ignore_errors=True)
 
     ms = statistics.median(timed.ms)
     print(f"requests {REQUESTS}, ms per depth map: " + " ".join(f"{t:.2f}" for t in timed.ms),
@@ -329,8 +468,78 @@ def main_path(device, state_dict):
     for name, per in EXPECTED_PER_FORWARD.items():
         if counts.get(name, 0) != per * REQUESTS:
             fail(f"{name} launched {counts.get(name, 0)} times, expected {per} x {REQUESTS}")
+    if set(counts) - set(EXPECTED_PER_FORWARD):
+        fail(f"launches of kernels off this path: {counts}")
     if max(errs) > 0.05 * PLANE_Z:
         fail(f"median depth error {max(errs):.4f} above 5% of the plane depth")
+    return counts, estimator
+
+
+def coordinate_path(device, model, scene):
+    """Phase 6: a plane sweep through `coord_group_corr` (K7) on the scene's
+    first batch: the bf16 FeatureNet's features of each stage, the warp
+    coordinates of SWEEP_DEPTHS[stage] hypotheses uniform in inverse depth
+    over the scene's range, K7 per source view, and the winner-take-all
+    depth of the view-summed correlation. Returns the K7 launch counts."""
+    import numpy as np
+    import torch
+
+    from patchmatchnet_torch import ops
+    from patchmatchnet_torch.data import PLANE_Z, BatchLoader, MVSDataset
+    from patchmatchnet_torch.models.patchmatch import STAGE_CONFIG
+    from patchmatchnet_torch.ops import cuda_build
+    from patchmatchnet_torch.ops.warp import warp_coords, warp_proj_coeffs
+
+    batch = next(iter(BatchLoader(MVSDataset(scene, MAIN_VIEWS - 1, ".png"), num_threads=1)))
+    images, intr, extr, dmin, dmax = [
+        torch.as_tensor(np.asarray(batch[k])).to(device).float()
+        for k in ("images", "intrinsics", "extrinsics", "depth_min", "depth_max")]
+    n = images.shape[1]
+    with torch.inference_mode():
+        feats = model.feature(images[0].permute(0, 3, 1, 2))  # {stage: [N, C, h, w]}
+    cases = []
+    for stage, d in SWEEP_DEPTHS.items():
+        f = feats[stage].permute(0, 2, 3, 1).contiguous()  # [N, h, w, C]
+        h, w = f.shape[1:3]
+        k = intr[0].clone()
+        k[:, :2] *= 0.5 ** stage
+        proj = extr[0].clone()
+        proj[:, :3, :4] = k @ extr[0, :, :3, :4]
+        mats = warp_proj_coeffs(proj[1:], proj[:1])  # [N - 1, 12]
+        inv_min, inv_max = 1.0 / dmin[0], 1.0 / dmax[0]
+        steps = (torch.arange(d, device=device) + 0.5) / d
+        hyp = 1.0 / (inv_max + steps * (inv_min - inv_max))  # [D], far to near
+        depth = hyp.reshape(1, d, 1, 1).expand(1, d, h, w).contiguous()
+        coords = [warp_coords(mats[v:v + 1], depth, h, w) for v in range(n - 1)]
+        cases.append((stage, f, mats, depth, hyp, coords))
+
+    cuda_build.reset_launch_counts()
+    sims = [[ops.coord_group_corr(f[v + 1:v + 2], ix, iy, f[:1], STAGE_CONFIG[stage].groups)
+             for v, (ix, iy) in enumerate(coords)]
+            for stage, f, mats, depth, hyp, coords in cases]
+    counts = cuda_build.launch_counts()
+
+    for (stage, f, mats, depth, hyp, coords), per_view in zip(cases, sims):
+        g = STAGE_CONFIG[stage].groups
+        k1_diff = max((sim - ops.warp_group_corr(f[v + 1:v + 2], mats[v:v + 1].contiguous(),
+                                                  depth, f[:1], g)).abs().max().item()
+                      for v, sim in enumerate(per_view))
+        volume = torch.stack(per_view).sum(0).sum(1)[0]  # [D, h, w]
+        if not torch.isfinite(volume).all():
+            fail(f"coordinate path stage {stage}: non-finite similarity")
+        wta = hyp[volume.argmax(0)]
+        err = (wta - PLANE_Z).abs().median().item()
+        print(f"plane sweep stage{stage} C{f.shape[-1]} G{g} D{depth.shape[1]} "
+              f"{f.shape[1]}x{f.shape[2]}, {n - 1} views: median |WTA depth - GT| {err:.4f} "
+              f"(plane at {PLANE_Z}); max |K7 - K1| {k1_diff:.3e}", flush=True)
+        if k1_diff > parity_tol("coord_group_corr", 0.0)[0]:
+            fail(f"K7 on the warp coordinates differs from K1 at stage {stage}")
+        if err > 0.05 * PLANE_Z:
+            fail(f"plane sweep stage {stage}: median depth error above 5% of the plane")
+    want = len(SWEEP_DEPTHS) * (n - 1)
+    print(f"coordinate path launch counts: {counts}", flush=True)
+    if counts != {"coord_group_corr": want}:
+        fail(f"coordinate path launched {counts}, expected coord_group_corr {want}")
     return counts
 
 
@@ -346,9 +555,9 @@ def backward_tol(dtype):
 
 
 def backward_parity(device):
-    """Phase 6: K4 and K5 vs autograd through their plain forwards at the
+    """Phase 7: K4 and K5 vs autograd through their plain forwards at the
     640x512 B=2 training stage shapes. Returns {kernel: {"max_abs_err",
-    "ms", "plain_ms"}} with times summed over a train step's launches
+    "ms", "plain_ms", "bytes", "ops"}} with times summed over a train step's launches
     (bf16 payloads). The bounds are relative to the largest entry;
     max_abs_err is the absolute error. "ms" is the wrapper's time, as the
     train step calls it: zeroing the f32 gradient buffers, the launch, and
@@ -368,8 +577,7 @@ def backward_parity(device):
     # (stage, C, G, scale, [(D, K4 launches per train step at N=5)])
     stages = [(3, 64, 8, 8, [(64, 4), (32, 4)]), (2, 32, 8, 4, [(16, 8)]),
               (1, 16, 4, 2, [(8, 4)])]
-    summary = {name: {"max_abs_err": 0.0, "ms": 0.0, "plain_ms": 0.0}
-               for name in BACKWARD_KERNELS}
+    summary = new_summary(BACKWARD_KERNELS)
 
     def check(name, label, got, want, dtype):
         tol_max, tol_mean = backward_tol(dtype)
@@ -384,12 +592,13 @@ def backward_parity(device):
                 fail(f"{name} {label} exceeds max {tol_max} / mean {tol_mean} of the largest entry")
             summary[name]["max_abs_err"] = max(summary[name]["max_abs_err"], abs_max)
 
-    def timed(name, label, launches, kernel_fn, plain_fn):
+    def timed(name, label, launches, args, kernel_fn, plain_fn):
+        out = kernel_fn()
         ms, plain_ms = time_ms(kernel_fn), time_ms(plain_fn)
-        summary[name]["ms"] += ms * launches
-        summary[name]["plain_ms"] += plain_ms * launches
-        print(f"{name} {label}: wrapper {ms:.4f} ms plain {plain_ms:.4f} ms "
-              f"(x{launches}/train step)", flush=True)
+        add_time(summary[name], name, args, out, launches, ms, plain_ms)
+        work_ms, by = bound(*kernel_work(name, args, out))
+        print(f"{name} {label}: wrapper {ms:.4f} ms plain {plain_ms:.4f} ms bound "
+              f"{work_ms:.4f} ms ({by}) (x{launches}/train step)", flush=True)
 
     for stage, c, g, scale, depths in stages:
         h, w = TRAIN_H // scale, TRAIN_W // scale
@@ -415,7 +624,7 @@ def backward_parity(device):
                     s_ = src.detach().requires_grad_(True)
                     r_ = ref.detach().requires_grad_(True)
                     out = ops.warp_group_corr_reference(s_, mat12, depth, r_, g)
-                    timed("warp_group_corr_backward", label, launches,
+                    timed("warp_group_corr_backward", label, launches, args,
                           lambda: ops.warp_group_corr_backward(*args),
                           lambda: torch.autograd.grad(out, (s_, r_), dout, retain_graph=True))
             dout = torch.randn((b, g, 9, h, w), generator=gen, device=device)
@@ -426,7 +635,7 @@ def backward_parity(device):
             if dtype == torch.bfloat16:
                 gx, gy = (t.detach().requires_grad_(True) for t in grid)
                 out = ops.neighbor_group_corr_reference(ref, (gx, gy), g)
-                timed("neighbor_group_corr_backward", label, 1,
+                timed("neighbor_group_corr_backward", label, 1, args,
                       lambda: ops.neighbor_group_corr_backward(*args),
                       lambda: torch.autograd.grad(out, (gx, gy), dout, retain_graph=True))
     return summary
@@ -438,7 +647,7 @@ def _cosine(a, b) -> float:
 
 
 def train_step_parity(device, state_dict):
-    """Phase 7: one f32 train step on the card (kernels on, TF32 off) vs the
+    """Phase 8: one f32 train step on the card (kernels on, TF32 off) vs the
     same step on the CPU (plain versions), 64x80, N=3, B=2 plane batch."""
     import torch
 
@@ -478,50 +687,16 @@ def train_step_parity(device, state_dict):
         fail(f"f32 train step launches {counts}, expected {want} and no eval_grid_score")
 
 
-def kernel_kind(name: str) -> str:
-    """Coarse kind of a device kernel, by its name."""
-    low = name.lower()
-    if "pmn::" in name:
-        return "hand kernels (K1-K5)"
-    if any(k in low for k in ("conv", "cudnn", "xmma", "cutlass", "wgrad", "dgrad", "nvjet",
-                              "gemm")):
-        return "convolutions and channel-map GEMMs"
-    if "grid_sampler" in low:
-        return "grid_sample"
-    if "reduce" in low:
-        return "reductions"
-    if "elementwise" in low:
-        return "element-wise"
-    return "other"
-
-
 def trace_steps(step, steps: int, path: str) -> None:
     """Profile `steps` calls of step() and print launches, device-busy time,
     idle share of the traced span and device time by kernel kind, per call."""
-    import torch
-    from torch.profiler import ProfilerActivity, profile
+    from patchmatchnet_torch.utils.trace import busy_union_us, kernel_kind, trace_device_events
 
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        for _ in range(steps):
-            step()
-        torch.cuda.synchronize()
-    prof.export_chrome_trace(path)
-    with open(path) as f:
-        events = [(e["cat"], e["name"], float(e["ts"]), float(e["dur"]))
-                  for e in json.load(f).get("traceEvents", [])
-                  if e.get("ph") == "X" and e.get("cat") in ("kernel", "gpu_memcpy", "gpu_memset")]
+    events = trace_device_events(step, steps, path)
     if not events:
         print("trace: no device events recorded", flush=True)
         return
-    busy, cur_s, cur_e = 0.0, None, None
-    for s, e in sorted((s, s + d) for _, _, s, d in events):
-        if cur_e is None or s > cur_e:
-            busy += 0.0 if cur_e is None else cur_e - cur_s
-            cur_s, cur_e = s, e
-        else:
-            cur_e = max(cur_e, e)
-    busy += cur_e - cur_s
+    busy = busy_union_us((s, s + d) for _, _, s, d in events)
     span = max(s + d for _, _, s, d in events) - min(s for _, _, s, _ in events)
     kinds = {}
     launches = 0
@@ -540,7 +715,7 @@ def trace_steps(step, steps: int, path: str) -> None:
 
 
 def training_path(device, scratch):
-    """Phase 8: the bf16 training path at 640x512, N=5, B=2. Returns the
+    """Phase 9: the bf16 training path at 640x512, N=5, B=2. Returns the
     launch counts of the driver's run."""
     import torch
 
@@ -655,7 +830,7 @@ def training_path(device, scratch):
           + " ".join(f"{r['step_ms']:.2f}" for r in history) + f"; launches {counts}", flush=True)
     want = {name: per * steps for name, per in EXPECTED_PER_STEP.items()}
     for name, per in EXPECTED_PER_FORWARD.items():
-        want[name] += per * val
+        want[name] = want.get(name, 0) + per * val
     if counts != {k: v for k, v in want.items() if v}:
         fail(f"run_training launched {counts}, expected {want}")
     if not all(math.isfinite(r["loss"]) for r in history):
@@ -701,6 +876,7 @@ def main() -> int:
 
     phase("f32 golden parity (kernels on, TF32 off)")
     from patchmatchnet_torch.compat import read_flax_msgpack, state_dict_from_jax
+    from patchmatchnet_torch.data import make_synthetic_scene
     from patchmatchnet_torch.models import PatchmatchNet
 
     state_dict = state_dict_from_jax(read_flax_msgpack(CKPT))
@@ -709,9 +885,21 @@ def main() -> int:
     golden_parity(device, model_f32)
     del model_f32
 
-    phase(f"main path: bf16 DepthEstimator, {MAIN_W}x{MAIN_H}, {MAIN_VIEWS} views, "
-          f"{REQUESTS} requests")
-    counts = main_path(device, state_dict)
+    os.makedirs(os.path.join(REPO, "build"), exist_ok=True)
+    scene = tempfile.mkdtemp(prefix="smoke_scene_", dir=os.path.join(REPO, "build"))
+    try:
+        make_synthetic_scene(scene, num_views=MAIN_VIEWS, height=MAIN_H, width=MAIN_W,
+                             texture_scale=8.0)
+        phase(f"main path: bf16 DepthEstimator, {MAIN_W}x{MAIN_H}, {MAIN_VIEWS} views, "
+              f"{REQUESTS} requests")
+        counts, estimator = main_path(device, state_dict, scene)
+
+        phase(f"coordinate-input path: plane sweep through coord_group_corr (K7) at "
+              f"{MAIN_W}x{MAIN_H}, {MAIN_VIEWS} views")
+        counts.update(coordinate_path(device, estimator.model, scene))
+        del estimator
+    finally:
+        shutil.rmtree(scene, ignore_errors=True)
 
     phase("backward-kernel parity (K4/K5 vs plain versions on the card)")
     summary.update(backward_parity(device))
@@ -726,16 +914,20 @@ def main() -> int:
         train_counts = training_path(device, scratch)
     finally:
         shutil.rmtree(scratch, ignore_errors=True)
-    # launches: the inference kernels from the inference path's run (phase
-    # 5), the backward kernels from the training driver's run (phase 8)
+    # launches: K1, K2, K3 and K6 from the main path's run (phase 5), K7
+    # from the coordinate-input path's (phase 6), the backward kernels from
+    # the training driver's run (phase 9)
     counts.update({name: train_counts.get(name, 0) for name in BACKWARD_KERNELS})
 
-    kernels = [
-        {"name": name, "route": "cuda", "source": src, "replaces": replaces,
-         "launches": counts.get(name, 0), "max_abs_err": summary[name]["max_abs_err"],
-         "ms": summary[name]["ms"], "plain_ms": summary[name]["plain_ms"]}
-        for name, (src, replaces) in KERNEL_INFO.items()
-    ]
+    kernels = []
+    for name, (src, replaces) in KERNEL_INFO.items():
+        s = summary[name]
+        bound_ms, bound_by = bound(s["bytes"], s["ops"])
+        kernels.append({
+            "name": name, "route": "cuda", "source": src, "replaces": replaces,
+            "launches": counts.get(name, 0), "max_abs_err": s["max_abs_err"],
+            "ms": s["ms"], "plain_ms": s["plain_ms"], "bound_ms": bound_ms,
+            "bound_by": bound_by, "library_ms": None})
     print(smi)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

@@ -73,22 +73,10 @@ __device__ __forceinline__ void set_weights(Taps& t) {
   t.w[3] = t.fx * t.fy;
 }
 
-// Homography warp of reference pixel (u, v) at depth `dep` through
-// m = [R | t] (12 floats, row-major): p = R [u, v, 1]^T * dep + t,
-// (ix, iy) = (px, py) / pz, rounded op by op like the reference. Zeros
-// padding, align_corners=True; pz <= 1e-3 (behind the source camera)
-// pushes the sample to (Ws, Hs), where no corner is valid.
-__device__ __forceinline__ Taps warp_taps(const float* m, float u, float v, float dep,
-                                          int Hs, int Ws) {
-  const float rx = __fadd_rn(__fadd_rn(__fmul_rn(m[0], u), __fmul_rn(m[1], v)), m[2]);
-  const float ry = __fadd_rn(__fadd_rn(__fmul_rn(m[4], u), __fmul_rn(m[5], v)), m[6]);
-  const float rz = __fadd_rn(__fadd_rn(__fmul_rn(m[8], u), __fmul_rn(m[9], v)), m[10]);
-  const float px = __fadd_rn(__fmul_rn(rx, dep), m[3]);
-  const float py = __fadd_rn(__fmul_rn(ry, dep), m[7]);
-  const float pz = __fadd_rn(__fmul_rn(rz, dep), m[11]);
-  const bool behind = pz <= 1e-3f;
-  const float ix = behind ? (float)Ws : __fdiv_rn(px, pz);
-  const float iy = behind ? (float)Hs : __fdiv_rn(py, pz);
+// Cell of a sample at source pixel coordinates (ix, iy): zeros padding,
+// align_corners=True. A corner outside the Hs x Ws map is invalid (reads
+// zero); so is every corner of a sample far off the image.
+__device__ __forceinline__ Taps coord_taps(float ix, float iy, int Hs, int Ws) {
   const float x0f = floorf(ix), y0f = floorf(iy);
   Taps t;
   t.fx = ix - x0f;
@@ -108,6 +96,25 @@ __device__ __forceinline__ Taps warp_taps(const float* m, float u, float v, floa
   return t;
 }
 
+// Homography warp of reference pixel (u, v) at depth `dep` through
+// m = [R | t] (12 floats, row-major): p = R [u, v, 1]^T * dep + t,
+// (ix, iy) = (px, py) / pz, rounded op by op like the reference; then the
+// cell of `coord_taps`. pz <= 1e-3 (behind the source camera) pushes the
+// sample to (Ws, Hs), where no corner is valid.
+__device__ __forceinline__ Taps warp_taps(const float* m, float u, float v, float dep,
+                                          int Hs, int Ws) {
+  const float rx = __fadd_rn(__fadd_rn(__fmul_rn(m[0], u), __fmul_rn(m[1], v)), m[2]);
+  const float ry = __fadd_rn(__fadd_rn(__fmul_rn(m[4], u), __fmul_rn(m[5], v)), m[6]);
+  const float rz = __fadd_rn(__fadd_rn(__fmul_rn(m[8], u), __fmul_rn(m[9], v)), m[10]);
+  const float px = __fadd_rn(__fmul_rn(rx, dep), m[3]);
+  const float py = __fadd_rn(__fmul_rn(ry, dep), m[7]);
+  const float pz = __fadd_rn(__fmul_rn(rz, dep), m[11]);
+  const bool behind = pz <= 1e-3f;
+  const float ix = behind ? (float)Ws : __fdiv_rn(px, pz);
+  const float iy = behind ? (float)Hs : __fdiv_rn(py, pz);
+  return coord_taps(ix, iy, Hs, Ws);
+}
+
 // Eval-grid sample at normalized (gx, gy): align_corners=False, border
 // clamping; the cell's x0 is clamped to [0, W-2], so fx may be 1 at the
 // last column. All four corners are valid.
@@ -122,6 +129,45 @@ __device__ __forceinline__ Taps border_taps(float sx, float sy, int Hs, int Ws) 
   t.x0 = (int)x0f;
   t.y0 = (int)y0f;
   return t;
+}
+
+// Group sums of one sample: the bilinear tap of the [Hs, Ws, C] map `base`
+// at the cell `taps`, times the reference pixel `r` [C], summed over the
+// C / G channels of each group into acc[G] (not yet divided by C / G).
+// Channels are read in 16-byte vectors; invalid corners are not read. K1,
+// K3, K6 and K7 reduce every sample through this one function, so they
+// share its arithmetic to the bit.
+template <typename T, int C, int G>
+__device__ __forceinline__ void group_sums(const T* base, int Ws, const Taps& taps,
+                                           const T* r, float (&acc)[G]) {
+  constexpr int N = VecLoad<T>::N;
+  constexpr int CG = C / G;
+  static_assert(C % N == 0 && C % G == 0, "channel layout");
+  const long long x0 = taps.x0, y0 = taps.y0;
+  const T* corner[4] = {
+      base + (y0 * Ws + x0) * C,
+      base + (y0 * Ws + x0 + 1) * C,
+      base + ((y0 + 1) * Ws + x0) * C,
+      base + ((y0 + 1) * Ws + x0 + 1) * C,
+  };
+#pragma unroll
+  for (int g = 0; g < G; ++g) acc[g] = 0.0f;
+#pragma unroll
+  for (int c = 0; c < C; c += N) {
+    float warped[N], tap[N], rv[N];
+#pragma unroll
+    for (int i = 0; i < N; ++i) warped[i] = 0.0f;
+#pragma unroll
+    for (int t = 0; t < 4; ++t) {
+      if (!taps.valid[t]) continue;
+      VecLoad<T>::load(corner[t] + c, tap);
+#pragma unroll
+      for (int i = 0; i < N; ++i) warped[i] += tap[i] * taps.w[t];
+    }
+    VecLoad<T>::load(r + c, rv);
+#pragma unroll
+    for (int i = 0; i < N; ++i) acc[(c + i) / CG] += warped[i] * rv[i];
+  }
 }
 
 inline unsigned int num_blocks(long long total) {

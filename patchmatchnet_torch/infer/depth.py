@@ -26,9 +26,11 @@ from patchmatchnet_torch.models.patchmatch import INITIAL_NUM_SAMPLES
 class DepthEstimator:
     """PatchmatchNet inference on one explicit device.
 
-    `bucket_multiple` > 0 rounds (H, W) up to that multiple with
-    edge-replicated padding and crops the outputs back (see the
-    reference); 0 keeps exact shapes."""
+    The model runs as it was built, under `torch.inference_mode`, so every
+    evaluation call that has view weights makes one K6 launch in place of a
+    K1 launch per source view. `bucket_multiple` > 0 rounds (H, W) up to
+    that multiple with edge-replicated padding and crops the outputs back
+    (see the reference); 0 keeps exact shapes."""
 
     def __init__(self, model: PatchmatchNet, device: Union[str, torch.device],
                  bucket_multiple: int = 0):

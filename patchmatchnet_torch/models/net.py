@@ -14,6 +14,10 @@ bf16 while geometry, softmax, regression and the refinement residual stay
 f32, at the same cast points as the reference's `compute_dtype`. The f32
 mode (`compute_dtype=None`) turns TF32 off for its duration, so cuDNN runs
 its convolutions in full f32 as the reference does.
+
+Every inference evaluation after stage 3's first makes one K6 launch over
+all source views, the reference's PATCHMATCHNET_TPU_FUSED_VIEWS=1 path (see
+`patchmatch.Evaluation`); it gives the per-view route's result to the bit.
 """
 
 from __future__ import annotations
@@ -104,6 +108,7 @@ class PatchmatchNet(nn.Module):
         # Step 1: features as NHWC buffers (channels_last convs), one list
         # of N views [B, h, w, C] per stage.
         features: Dict[int, List[torch.Tensor]] = {s: [] for s in (1, 2, 3)}
+        src_stacks: Dict[int, torch.Tensor] = {}  # [B, N-1, h, w, C] for K6
         if self.training:
             # one call per view: per-view batch statistics (reference:
             # net.py:120-123)
@@ -117,6 +122,7 @@ class PatchmatchNet(nn.Module):
             for s, f in self.feature(nchw).items():
                 f = f.permute(0, 2, 3, 1).reshape(b, n, *f.shape[2:], f.shape[1])
                 features[s] = [f[:, v].contiguous() for v in range(n)]
+                src_stacks[s] = f[:, 1:].contiguous()  # no copy when B = 1
 
         # Step 2: per-stage projection matrices (K scaled per level).
         projs: Dict[int, torch.Tensor] = {}
@@ -143,6 +149,7 @@ class PatchmatchNet(nn.Module):
                 depth=depth,
                 view_weights=view_weights,
                 init_noise=init_noise if stage == 3 else None,
+                src_stack=src_stacks.get(stage),
             )
             depth_patchmatch[stage] = depths
             depth = depths[-1].detach()  # no gradient between stages

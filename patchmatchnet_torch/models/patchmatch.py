@@ -12,9 +12,15 @@ Layouts at the public functions follow the reference:
 One difference: view weights are channel-first [B, V, H, W] (the reference
 keeps [B, H, W, V]); they are only passed between stages.
 
-The evaluation runs the three kernels: K1 `warp_group_corr` per source
-view, K3 `neighbor_group_corr` on a stage's first iteration, and K2
-`eval_grid_score` for the aggregation tail, in f32 and bf16 modes alike.
+The evaluation runs four kernels, in f32 and bf16 modes alike: K3
+`neighbor_group_corr` on a stage's first iteration, K2 `eval_grid_score`
+for the aggregation tail, and for the similarity volume either K1
+`warp_group_corr` per source view or, in an inference evaluation whose view
+weights are already known (every call after stage 3's first), one K6
+`warp_group_corr_views` launch for all source views (the reference's
+PATCHMATCHNET_TPU_FUSED_VIEWS=1 path). K6 rounds like the per-view route,
+so the result is the same; it has no backward, so a forward that records
+gradients (train mode, or eval mode with grad enabled) takes K1.
 
 Train mode (`module.train()`) places the reference's stop-gradients: the
 perturbation centre, x_norm and the depth weight carry none; K1 passes
@@ -37,7 +43,7 @@ from patchmatchnet_torch.ops.eval_tail import eval_grid_score, eval_grid_score_r
 from patchmatchnet_torch.ops.grid_sample import grid_sample_2d
 from patchmatchnet_torch.ops.neighbor_similarity import neighbor_group_corr
 from patchmatchnet_torch.ops.warp import warp_proj_coeffs
-from patchmatchnet_torch.ops.warp_similarity import warp_group_corr
+from patchmatchnet_torch.ops.warp_similarity import warp_group_corr, warp_group_corr_views
 
 INITIAL_NUM_SAMPLES = 48  # stratified random inverse-depth samples on stage 3
 EVALUATE_NEIGHBORS = 9  # eval-grid neighbours (Ke) on every stage
@@ -211,8 +217,13 @@ class Evaluation(nn.Module):
         interval_scale: float,
         view_weights: Optional[torch.Tensor],
         is_inverse: bool,
+        src_stack: Optional[torch.Tensor] = None,
+        mats: Optional[torch.Tensor] = None,
     ):
-        """Returns (depth [B, H, W], score [B, H, W, D] f32,
+        """`src_stack` [B, V, Hs, Ws, C] and `mats` [B, V, 12] are the source
+        features and warp coefficients stacked for K6; an inference call
+        that is given view weights needs them.
+        Returns (depth [B, H, W], score [B, H, W, D] f32,
         view_weights [B, V, H, W], feature_weight [B, Ke, H, W])."""
         b, h, w, _ = ref_feature.shape
         num_depth = depth_sample.shape[1]
@@ -222,17 +233,28 @@ class Evaluation(nn.Module):
         weight_sum = torch.full((b, 1, 1, 1, 1), 1e-5, dtype=torch.float32,
                                 device=ref_feature.device)
         new_view_weights: List[torch.Tensor] = []
-        for i, (src, mat12) in enumerate(zip(src_features, warp_mats)):
-            similarity = warp_group_corr(src, mat12, depth_sample, ref_feature,
-                                         self.groups)  # [B, G, D, H, W] f32
-            if view_weights is None:
-                view_weight = self.pixel_wise_net(similarity)  # [B, H, W]
-                new_view_weights.append(view_weight)
-            else:
-                view_weight = view_weights[:, i]
-            vw = view_weight[:, None, None]  # [B, 1, 1, H, W]
-            similarity_sum = similarity_sum + similarity * vw
-            weight_sum = weight_sum + vw
+        if view_weights is not None and not self.training and not torch.is_grad_enabled():
+            # one K6 launch for all views (reference: patchmatch.py:426-459);
+            # the weight sum in the per-view loop's order
+            if src_stack is None or mats is None:
+                raise ValueError("an inference evaluation with view weights needs src_stack "
+                                 "and mats")
+            similarity_sum = warp_group_corr_views(src_stack, mats, depth_sample, ref_feature,
+                                                   view_weights, self.groups)
+            for i in range(view_weights.shape[1]):
+                weight_sum = weight_sum + view_weights[:, i, None, None]
+        else:
+            for i, (src, mat12) in enumerate(zip(src_features, warp_mats)):
+                similarity = warp_group_corr(src, mat12, depth_sample, ref_feature,
+                                             self.groups)  # [B, G, D, H, W] f32
+                if view_weights is None:
+                    view_weight = self.pixel_wise_net(similarity)  # [B, H, W]
+                    new_view_weights.append(view_weight)
+                else:
+                    view_weight = view_weights[:, i]
+                vw = view_weight[:, None, None]  # [B, 1, 1, H, W]
+                similarity_sum = similarity_sum + similarity * vw
+                weight_sum = weight_sum + vw
         similarity = cast(similarity_sum / weight_sum, self.dtype)
         cost_img = self.similarity_net(similarity)  # [B, H, W, D]
 
@@ -292,12 +314,15 @@ class PatchMatch(nn.Module):
         depth: Optional[torch.Tensor],
         view_weights: Optional[torch.Tensor],
         init_noise: Optional[torch.Tensor] = None,
+        src_stack: Optional[torch.Tensor] = None,
     ) -> Tuple[List[torch.Tensor], torch.Tensor, torch.Tensor]:
         """ref_feature / src_features: [B, H, W, C] (contiguous); depth:
         [B, H, W] previous-stage depth or None on stage 3, which then needs
         `init_noise` [B, 48, H, W]; view_weights [B, V, H, W] or None (made
-        by the first evaluation). Returns (per-iteration depths [B, H, W],
-        final score [B, H, W, D], view_weights [B, V, H, W])."""
+        by the first evaluation). `src_stack`: the source features as one
+        contiguous [B, V, H, W, C] tensor, needed by K6 in inference.
+        Returns (per-iteration depths [B, H, W], final score [B, H, W, D],
+        view_weights [B, V, H, W])."""
         cfg = self.config
         b, h, w, _ = ref_feature.shape
         ref_nchw = ref_feature.permute(0, 3, 1, 2)  # channels_last view
@@ -338,6 +363,7 @@ class PatchMatch(nn.Module):
                 ref_feature, src_features, warp_mats, depth_sample, eval_grid,
                 x_norm_img, feature_weight, cfg.interval_scale, view_weights,
                 is_inverse=self.stage == 1 and it == cfg.iterations,
+                src_stack=src_stack, mats=mats,
             )
             depths.append(depth)
         return depths, score, view_weights

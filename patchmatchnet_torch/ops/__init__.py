@@ -1,7 +1,9 @@
 """Tensor ops of the port: plain PyTorch helpers and the kernel wrappers
-(K1 `warp_group_corr`, K2 `eval_grid_score`, K3 `neighbor_group_corr`, and
-the backward kernels K4 `warp_group_corr_backward` and K5
-`neighbor_group_corr_backward`), each with a `*_reference` plain version."""
+(K1 `warp_group_corr`, K2 `eval_grid_score`, K3 `neighbor_group_corr`, the
+backward kernels K4 `warp_group_corr_backward` and K5
+`neighbor_group_corr_backward`, the fused-views K6 `warp_group_corr_views`
+and the coordinate-input K7 `coord_group_corr`), each with a `*_reference`
+plain version."""
 
 from patchmatchnet_torch.ops.eval_tail import eval_grid_score, eval_grid_score_reference
 from patchmatchnet_torch.ops.neighbor_similarity import (
@@ -11,13 +13,19 @@ from patchmatchnet_torch.ops.neighbor_similarity import (
     neighbor_group_corr_reference,
 )
 from patchmatchnet_torch.ops.warp_similarity import (
+    coord_group_corr,
+    coord_group_corr_reference,
     warp_group_corr,
     warp_group_corr_backward,
     warp_group_corr_backward_reference,
     warp_group_corr_reference,
+    warp_group_corr_views,
+    warp_group_corr_views_reference,
 )
 
 __all__ = [
+    "coord_group_corr",
+    "coord_group_corr_reference",
     "eval_grid_score",
     "eval_grid_score_reference",
     "neighbor_group_corr",
@@ -28,4 +36,6 @@ __all__ = [
     "warp_group_corr_backward",
     "warp_group_corr_backward_reference",
     "warp_group_corr_reference",
+    "warp_group_corr_views",
+    "warp_group_corr_views_reference",
 ]

@@ -40,6 +40,10 @@ _SIGNATURES = {
     "pmn_warp_group_corr": [_P, _P, _P, _P, _P] + [_I] * 9 + [_P],
     # ref, gx, gy, out, B, K, H, W, C, G, bf16, stream
     "pmn_neighbor_group_corr": [_P, _P, _P, _P] + [_I] * 7 + [_P],
+    # src, ref, ix, iy, out, B, D, H, W, Hs, Ws, C, G, bf16, stream
+    "pmn_coord_group_corr": [_P] * 5 + [_I] * 9 + [_P],
+    # src, ref, mats, depth, vw, out, B, V, D, H, W, Hs, Ws, C, G, bf16, stream
+    "pmn_warp_group_corr_views": [_P] * 6 + [_I] * 10 + [_P],
     # xnorm, cost, gx, gy, fw, out, B, K, H, W, D, inv_interval, cost_bf16, stream
     "pmn_eval_grid_score": [_P] * 6 + [_I] * 5 + [_F, _I, _P],
     # src, ref, mat12, depth, dout, d_src, d_ref, B, D, H, W, Hs, Ws, C, G, bf16, stream

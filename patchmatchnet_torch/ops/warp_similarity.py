@@ -1,6 +1,8 @@
-"""K1: fused homography warp + bilinear sample + group correlation.
+"""K1: fused homography warp + bilinear sample + group correlation, and
+its companions K6 (`warp_group_corr_views`, the view-weighted sum over all
+source views) and K7 (`coord_group_corr`, K1 with given coordinates).
 
-Replaces `patchmatchnet_tpu/ops/pallas/windowed_similarity.py` `_kernel_proj`
+K1 replaces `patchmatchnet_tpu/ops/pallas/windowed_similarity.py` `_kernel_proj`
 (API `windowed_group_similarity_proj`). The CUDA kernel is
 `csrc/group_corr.cu` (`pmn_warp_group_corr`); its source note says what
 bounds it on the card and how it is laid out.
@@ -16,6 +18,7 @@ as the reference's warp grid is built under no_grad
 (`windowed_similarity.py` `_wgsp_bwd`). On CUDA the backward is K4
 (`csrc/group_corr_bwd.cu`, `pmn_warp_group_corr_backward`), replacing
 `_kernel_proj_bwd`; on the CPU it is autograd through the plain version.
+K6 and K7 are forward only, as their TPU kernels are.
 """
 
 from __future__ import annotations
@@ -42,14 +45,13 @@ def group_mean_matrix(channels: int, groups: int, device=None) -> torch.Tensor:
     return gm
 
 
-def warp_group_corr_reference(
-    src: torch.Tensor, mat12: torch.Tensor, depth: torch.Tensor,
+def coord_group_corr_reference(
+    src: torch.Tensor, ix: torch.Tensor, iy: torch.Tensor,
     ref: torch.Tensor, groups: int,
 ) -> torch.Tensor:
-    """Plain PyTorch version: `F.grid_sample` + einsum with the group-mean
-    matrix. Same arguments and result as `warp_group_corr`."""
+    """Plain PyTorch version of K7: `F.grid_sample` + einsum with the
+    group-mean matrix. Same arguments and result as `coord_group_corr`."""
     hs, ws, c = src.shape[1], src.shape[2], src.shape[3]
-    ix, iy = warp_coords(mat12, depth, hs, ws)
     gx = ix / ((ws - 1) / 2.0) - 1.0
     gy = iy / ((hs - 1) / 2.0) - 1.0
     warped = grid_sample_2d(
@@ -58,6 +60,16 @@ def warp_group_corr_reference(
     prod = warped * ref.float()[:, None]
     gm = group_mean_matrix(c, groups, src.device)
     return torch.einsum("bdhwc,cg->bgdhw", prod, gm)
+
+
+def warp_group_corr_reference(
+    src: torch.Tensor, mat12: torch.Tensor, depth: torch.Tensor,
+    ref: torch.Tensor, groups: int,
+) -> torch.Tensor:
+    """Plain PyTorch version of K1: the warp coordinates, then K7's plain
+    version. Same arguments and result as `warp_group_corr`."""
+    ix, iy = warp_coords(mat12, depth, src.shape[1], src.shape[2])
+    return coord_group_corr_reference(src, ix, iy, ref, groups)
 
 
 def _check_inputs(src, mat12, depth, ref, groups):
@@ -174,3 +186,128 @@ def warp_group_corr_backward(
         )
     cuda_build.check_launch("warp_group_corr_backward", rc)
     return d_src.to(src.dtype), d_ref.to(ref.dtype)
+
+
+def _refuse_grad(name: str, *tensors: torch.Tensor) -> None:
+    if torch.is_grad_enabled() and any(t.requires_grad for t in tensors):
+        raise ValueError(f"{name} has no backward (inference only, as in the reference): "
+                         "call it under torch.no_grad() or on detached inputs")
+
+
+def coord_group_corr(
+    src: torch.Tensor, ix: torch.Tensor, iy: torch.Tensor,
+    ref: torch.Tensor, groups: int,
+) -> torch.Tensor:
+    """K7: K1 with the sample coordinates given instead of the warp.
+
+    Replaces `windowed_similarity.py` `_kernel` (API
+    `windowed_group_similarity`). The CUDA kernel is `csrc/group_corr.cu`
+    (`pmn_coord_group_corr`); it picks a sample's cell with the code K1
+    uses after its warp, so `coord_group_corr(src, *warp_coords(...), ref,
+    g)` equals `warp_group_corr(src, mat12, depth, ref, g)`.
+
+    Args:
+        src: [B, Hs, Ws, C] source features (bf16 or f32).
+        ix, iy: [B, D, H, W] f32 source pixel coordinates (align_corners=True
+            units, may be off the image, where the zeros padding reads 0).
+        ref: [B, H, W, C] reference features, same dtype as `src`.
+        groups: G, dividing C.
+    Returns:
+        [B, G, D, H, W] f32 similarity volume. No backward: raises when grad
+        is enabled and an input requires it.
+
+    CPU tensors run the plain version; CUDA tensors launch the kernel, and
+    anything the kernel does not take raises.
+    """
+    _refuse_grad("coord_group_corr", src, ix, iy, ref)
+    if src.device.type == "cpu":
+        return coord_group_corr_reference(src, ix, iy, ref, groups)
+    b, hs, ws, c = src.shape
+    _, d, h, w = ix.shape
+    if (c, groups) not in SUPPORTED_CHANNELS_GROUPS:
+        raise ValueError(f"coord_group_corr: no kernel for C={c}, G={groups}")
+    dev = src.device
+    cuda_build.check_cuda_tensor("src", src, dev, _PAYLOAD_DTYPES, (b, hs, ws, c))
+    cuda_build.check_cuda_tensor("ref", ref, dev, (src.dtype,), (b, h, w, c))
+    cuda_build.check_cuda_tensor("ix", ix, dev, (torch.float32,), (b, d, h, w))
+    cuda_build.check_cuda_tensor("iy", iy, dev, (torch.float32,), (b, d, h, w))
+    out = torch.empty((b, groups, d, h, w), dtype=torch.float32, device=dev)
+    lib = cuda_build.kernel_library()
+    with torch.cuda.device(dev):
+        rc = lib.pmn_coord_group_corr(
+            src.data_ptr(), ref.data_ptr(), ix.data_ptr(), iy.data_ptr(), out.data_ptr(),
+            b, d, h, w, hs, ws, c, groups, int(src.dtype == torch.bfloat16),
+            cuda_build.stream_handle(dev),
+        )
+    cuda_build.check_launch("coord_group_corr", rc)
+    return out
+
+
+def warp_group_corr_views_reference(
+    src: torch.Tensor, mats: torch.Tensor, depth: torch.Tensor,
+    ref: torch.Tensor, view_weights: torch.Tensor, groups: int,
+) -> torch.Tensor:
+    """Plain PyTorch version of K6: K1's plain version per view, times its
+    weights, added to a zeroed sum in view order. Same arguments and result
+    as `warp_group_corr_views`."""
+    b, _, h, w = view_weights.shape
+    out = torch.zeros((b, groups, depth.shape[1], h, w), dtype=torch.float32,
+                      device=src.device)
+    for v in range(src.shape[1]):
+        sim = warp_group_corr_reference(src[:, v], mats[:, v], depth, ref, groups)
+        out = out + sim * view_weights[:, v, None, None]
+    return out
+
+
+def warp_group_corr_views(
+    src: torch.Tensor, mats: torch.Tensor, depth: torch.Tensor,
+    ref: torch.Tensor, view_weights: torch.Tensor, groups: int,
+) -> torch.Tensor:
+    """K6: the view-weighted sum of K1 over all source views, in one kernel.
+
+    Replaces `windowed_similarity.py` `_kernel_proj_views` (API
+    `windowed_group_similarity_proj_views`). The CUDA kernel is
+    `csrc/group_corr.cu` (`pmn_warp_group_corr_views`, K1's kernel with the
+    views looped inside each thread); it rounds like the per-view route (K1
+    per view, `sim * vw`, then the sum in view order), so the two agree to
+    the bit.
+
+    Args:
+        src: [B, V, Hs, Ws, C] stacked source-view features (bf16 or f32).
+        mats: [B, V, 12] f32 warp coefficients (`ops.warp.warp_proj_coeffs`).
+        depth: [B, D, H, W] f32 depth hypotheses, shared by the views.
+        ref: [B, H, W, C] reference features, same dtype as `src`.
+        view_weights: [B, V, H, W] f32 per-pixel view weights.
+        groups: G, dividing C.
+    Returns:
+        [B, G, D, H, W] f32: sum_v view_weights[:, v] * similarity_v.
+        Inference only, as in the reference: raises when grad is enabled
+        and an input requires it.
+
+    CPU tensors run the plain version; CUDA tensors launch the kernel, and
+    anything the kernel does not take raises.
+    """
+    _refuse_grad("warp_group_corr_views", src, mats, depth, ref, view_weights)
+    if src.device.type == "cpu":
+        return warp_group_corr_views_reference(src, mats, depth, ref, view_weights, groups)
+    b, v, hs, ws, c = src.shape
+    _, d, h, w = depth.shape
+    if (c, groups) not in SUPPORTED_CHANNELS_GROUPS:
+        raise ValueError(f"warp_group_corr_views: no kernel for C={c}, G={groups}")
+    dev = src.device
+    cuda_build.check_cuda_tensor("src", src, dev, _PAYLOAD_DTYPES, (b, v, hs, ws, c))
+    cuda_build.check_cuda_tensor("ref", ref, dev, (src.dtype,), (b, h, w, c))
+    cuda_build.check_cuda_tensor("mats", mats, dev, (torch.float32,), (b, v, 12))
+    cuda_build.check_cuda_tensor("depth", depth, dev, (torch.float32,), (b, d, h, w))
+    cuda_build.check_cuda_tensor("view_weights", view_weights, dev, (torch.float32,),
+                                 (b, v, h, w))
+    out = torch.empty((b, groups, d, h, w), dtype=torch.float32, device=dev)
+    lib = cuda_build.kernel_library()
+    with torch.cuda.device(dev):
+        rc = lib.pmn_warp_group_corr_views(
+            src.data_ptr(), ref.data_ptr(), mats.data_ptr(), depth.data_ptr(),
+            view_weights.data_ptr(), out.data_ptr(), b, v, d, h, w, hs, ws, c, groups,
+            int(src.dtype == torch.bfloat16), cuda_build.stream_handle(dev),
+        )
+    cuda_build.check_launch("warp_group_corr_views", rc)
+    return out

@@ -13,9 +13,11 @@ import torch
 from patchmatchnet_torch.infer import DepthEstimator
 from patchmatchnet_torch.models import PatchmatchNet
 from patchmatchnet_torch.ops import (
+    coord_group_corr,
     eval_grid_score,
     neighbor_group_corr,
     warp_group_corr,
+    warp_group_corr_views,
 )
 from patchmatchnet_torch.ops import cuda_build
 
@@ -73,11 +75,13 @@ def test_wrappers_return_plain_version_on_cpu():
     """On CPU tensors each wrapper is its plain version, exactly, and no
     launch is counted."""
     from patchmatchnet_torch.ops import (
+        coord_group_corr_reference,
         eval_grid_score_reference,
         neighbor_group_corr_reference,
         warp_group_corr_reference,
+        warp_group_corr_views_reference,
     )
-    from patchmatchnet_torch.ops.warp import warp_proj_coeffs
+    from patchmatchnet_torch.ops.warp import warp_coords, warp_proj_coeffs
 
     gen = torch.Generator().manual_seed(0)
     h, w, c, g, d = 8, 12, 16, 4, 3
@@ -91,6 +95,10 @@ def test_wrappers_return_plain_version_on_cpu():
     x_norm = torch.rand((1, h, w, d), generator=gen)
     cost = torch.randn((1, h, w, d), generator=gen)
     fw = torch.rand((1, 9, h, w), generator=gen)
+    stack = torch.stack([src, ref], 1)
+    mats = torch.stack([mat12, mat12], 1)
+    vw = torch.rand((1, 2, h, w), generator=gen)
+    ix, iy = warp_coords(mat12, depth, h, w)
     before = cuda_build.launch_counts()
     assert torch.equal(warp_group_corr(src, mat12, depth, ref, g),
                        warp_group_corr_reference(src, mat12, depth, ref, g))
@@ -98,6 +106,10 @@ def test_wrappers_return_plain_version_on_cpu():
                        neighbor_group_corr_reference(ref, grid, g))
     assert torch.equal(eval_grid_score(x_norm, cost, grid, fw, 0.0125),
                        eval_grid_score_reference(x_norm, cost, grid, fw, 0.0125))
+    assert torch.equal(warp_group_corr_views(stack, mats, depth, ref, vw, g),
+                       warp_group_corr_views_reference(stack, mats, depth, ref, vw, g))
+    assert torch.equal(coord_group_corr(src, ix, iy, ref, g),
+                       coord_group_corr_reference(src, ix, iy, ref, g))
     assert cuda_build.launch_counts() == before
 
 
@@ -114,7 +126,7 @@ def test_cuda_request_without_cuda_raises():
         DepthEstimator(PatchmatchNet(), device="cuda")
 
 
-@pytest.mark.parametrize("kernel", ["warp", "neighbor", "eval"])
+@pytest.mark.parametrize("kernel", ["warp", "neighbor", "eval", "views", "coord"])
 def test_wrappers_refuse_non_cpu_non_cuda_tensors(kernel):
     """A tensor that is neither on the CPU nor on a CUDA device never
     reaches a plain version: the wrapper raises before any launch."""
@@ -128,6 +140,12 @@ def test_wrappers_refuse_non_cpu_non_cuda_tensors(kernel):
                             torch.empty((1, 4, 8, 12), **meta), f, 4)
         elif kernel == "neighbor":
             neighbor_group_corr(f, grid, 4)
+        elif kernel == "views":
+            warp_group_corr_views(f[:, None], torch.empty((1, 1, 12), **meta),
+                                  torch.empty((1, 4, 8, 12), **meta), f,
+                                  torch.empty((1, 1, 8, 12), **meta), 4)
+        elif kernel == "coord":
+            coord_group_corr(f, grid[0], grid[1], f, 4)
         else:
             eval_grid_score(torch.empty((1, 8, 12, 4), **meta),
                             torch.empty((1, 8, 12, 4), **meta), grid,

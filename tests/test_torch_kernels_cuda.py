@@ -172,3 +172,119 @@ def test_model_f32_on_card_matches_cpu(device):
     assert torch.isfinite(gpu).all()
     diff = (gpu - cpu).abs() / 6.0
     assert diff.mean() < 2e-4 and diff.median() < 1e-5, (diff.mean(), diff.median())
+
+
+def _views_case(device, b, c, d, h, w, dtype, views=4, seed=3):
+    """A rig of `views` sources at x baselines +-0.35, +-0.7 around the
+    reference, stacked [B, V, h, w, C] features, depth with samples behind
+    the cameras, and per-pixel view weights."""
+    gen = torch.Generator(device=device).manual_seed(seed)
+    f = 1.1 * max(h, w)
+    k = torch.tensor([[f, 0, w / 2.0], [0, f, h / 2.0], [0, 0, 1]])
+    projs = []
+    for tx in (0.0, 0.35, -0.35, 0.7, -0.7)[:views + 1]:
+        p = torch.eye(4)
+        p[:3, :4] = k @ torch.tensor([[1.0, 0, 0, tx], [0, 1, 0, 0], [0, 0, 1, 0]])
+        projs.append(p)
+    projs = torch.stack(projs)[None].expand(b, -1, -1, -1)
+    mats = warp_proj_coeffs(projs[:, 1:], projs[:, :1]).to(device).contiguous()
+    src = torch.randn((b, views, h, w, c), generator=gen, device=device).to(dtype)
+    ref = torch.randn((b, h, w, c), generator=gen, device=device).to(dtype)
+    depth = 4.0 + 4.0 * torch.rand((b, d, h, w), generator=gen, device=device)
+    depth[:, 0, :2] = -1.0  # behind the source cameras
+    vw = torch.rand((b, views, h, w), generator=gen, device=device)
+    return src, mats, depth, ref, vw
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("c,g", [(16, 4), (32, 8), (64, 8)])
+@pytest.mark.parametrize("b,d,h,w", [(1, 6, 20, 36), (2, 5, 13, 17)])
+def test_views_kernel_matches_plain_and_per_view_route(device, dtype, c, g, b, d, h, w):
+    """K6 vs its plain version (twice K1's bound: a sum of 4 views with
+    weights below 1) and, to the bit, vs the per-view route it replaces: K1
+    per view, times the weights, summed in view order as `Evaluation` does;
+    one launch counted."""
+    src, mats, depth, ref, vw = _views_case(device, b, c, d, h, w, dtype)
+    before = cuda_build.launch_counts()
+    got = ops.warp_group_corr_views(src, mats, depth, ref, vw, g)
+    after = cuda_build.launch_counts()
+    assert after.get("warp_group_corr_views", 0) == before.get("warp_group_corr_views", 0) + 1
+    want = ops.warp_group_corr_views_reference(src, mats, depth, ref, vw, g)
+    torch.testing.assert_close(got, want, rtol=0, atol=4e-4)
+    route = torch.zeros_like(got)
+    for v in range(src.shape[1]):
+        sim = ops.warp_group_corr(src[:, v].contiguous(), mats[:, v].contiguous(), depth, ref, g)
+        route = route + sim * vw[:, v, None, None]
+    assert torch.equal(got, route)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("c,g", [(16, 4), (32, 8), (64, 8)])
+def test_coord_kernel_matches_plain_and_warp_kernel(device, dtype, c, g):
+    """K7 on the warp coordinates equals K1 to the bit; on jittered
+    coordinates (off the image too) it is within K1's bound of its plain
+    version; one launch counted per call."""
+    src, ref, mat12, depth, _, gen = _case(device, c, 6, 20, 36, dtype)
+    from patchmatchnet_torch.ops.warp import warp_coords
+
+    ix, iy = warp_coords(mat12, depth, 20, 36)
+    before = cuda_build.launch_counts()
+    got = ops.coord_group_corr(src, ix, iy, ref, g)
+    assert cuda_build.launch_counts().get("coord_group_corr", 0) == \
+        before.get("coord_group_corr", 0) + 1
+    assert torch.equal(got, ops.warp_group_corr(src, mat12, depth, ref, g))
+    jx = ix + 3.0 * torch.randn(ix.shape, generator=gen, device=device)
+    jy = iy + 3.0 * torch.randn(iy.shape, generator=gen, device=device)
+    torch.testing.assert_close(ops.coord_group_corr(src, jx, jy, ref, g),
+                               ops.coord_group_corr_reference(src, jx, jy, ref, g),
+                               rtol=0, atol=2e-4)
+
+
+def test_views_and_coord_wrappers_reject_what_the_kernels_do_not_take(device):
+    src, mats, depth, ref, vw = _views_case(device, 1, 16, 3, 8, 12, torch.float32)
+    with pytest.raises(ValueError, match="contiguous"):
+        ops.warp_group_corr_views(src, mats, depth, ref, vw.transpose(2, 3).contiguous()
+                                  .transpose(2, 3), 4)
+    with pytest.raises(ValueError, match="no kernel"):
+        ops.warp_group_corr_views(src, mats, depth, ref, vw, 2)
+    with pytest.raises(ValueError, match="no backward"):
+        ops.warp_group_corr_views(src.requires_grad_(True), mats, depth, ref, vw, 4)
+    ix = torch.zeros((1, 3, 8, 12), device=device)
+    with pytest.raises(TypeError):
+        ops.coord_group_corr(src[:, 0].detach(), ix, ix.double(), ref, 4)
+
+
+@pytest.mark.parametrize("dtype", [None, torch.bfloat16])
+def test_fused_model_on_card_equals_unfused(device, dtype):
+    """The inference forward on the card (K1 4 and K6 4 launches) gives, to
+    the bit, the depth and confidence of the same eval-mode forward with grad
+    enabled, which takes the per-view route (K1 20 launches, no K6);
+    random weights from a seed, 64x80, N=5."""
+    from patchmatchnet_torch.models import PatchmatchNet
+
+    torch.manual_seed(0)
+    model = PatchmatchNet(compute_dtype=dtype).eval()
+    for p in model.parameters():
+        p.data.uniform_(-0.2, 0.2)
+    model.to(device)
+    rng = np.random.default_rng(0)
+    h, w, n = 64, 80, 5
+    images = torch.from_numpy(rng.random((1, n, h, w, 3), dtype=np.float32)).to(device)
+    k = torch.tensor([[80.0, 0, w / 2], [0, 80.0, h / 2], [0, 0, 1]])
+    intr = k.expand(1, n, 3, 3).contiguous().to(device)
+    extr = torch.eye(4).repeat(1, n, 1, 1)
+    extr[0, :, 0, 3] = torch.tensor([0.0, 0.3, -0.3, 0.6, -0.6])
+    extr = extr.to(device)
+    dmin, dmax = torch.tensor([4.0], device=device), torch.tensor([10.0], device=device)
+    noise = torch.rand((1, 48, h // 8, w // 8), generator=torch.Generator().manual_seed(1))
+    args = (images, intr, extr, dmin, dmax)
+    cuda_build.reset_launch_counts()
+    with torch.inference_mode():
+        fused = model(*args, init_noise=noise.to(device))[:2]
+    counts = cuda_build.launch_counts()
+    assert counts["warp_group_corr"] == 4 and counts["warp_group_corr_views"] == 4
+    cuda_build.reset_launch_counts()
+    per_view = [t.detach() for t in model(*args, init_noise=noise.to(device))[:2]]
+    counts = cuda_build.launch_counts()
+    assert counts["warp_group_corr"] == 20 and "warp_group_corr_views" not in counts
+    assert torch.equal(fused[0], per_view[0]) and torch.equal(fused[1], per_view[1])

@@ -17,7 +17,9 @@ synthetic scene (`patchmatchnet_torch.data.make_synthetic_scene`):
 - one torch.profiler trace of `--forwards` back-to-back forwards: kernel
   launches per forward, device-busy ms per forward (the union of kernel,
   memcpy and memset intervals), the device idle share of the traced span
-  (first to last device activity), and device time per kernel name.
+  (first to last device activity), device time per kernel kind (as
+  `patchmatchnet_torch.utils.trace.kernel_kind` sorts them: element-wise,
+  convolutions, hand kernels, ...) and per kernel name.
 
 Prints a summary; writes the per-kernel tables as JSON to
 build/profile_torch_main.json (`--out`).
@@ -70,38 +72,6 @@ def host_ms(fn, reps=10):
     return statistics.median(times)
 
 
-def busy_union_us(intervals):
-    """Total length of the union of (start, end) intervals."""
-    total, cur_s, cur_e = 0.0, None, None
-    for s, e in sorted(intervals):
-        if cur_e is None or s > cur_e:
-            if cur_e is not None:
-                total += cur_e - cur_s
-            cur_s, cur_e = s, e
-        else:
-            cur_e = max(cur_e, e)
-    return total + (cur_e - cur_s if cur_e is not None else 0.0)
-
-
-def trace_forwards(forward, forwards, trace_path):
-    """Profile `forwards` back-to-back forwards; returns the device events
-    [(category, name, start_us, dur_us)] of the chrome trace."""
-    import torch
-    from torch.profiler import ProfilerActivity, profile
-
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        for _ in range(forwards):
-            forward()
-        torch.cuda.synchronize()
-    prof.export_chrome_trace(trace_path)
-    with open(trace_path) as f:
-        trace = json.load(f)
-    return [(e["cat"], e["name"], float(e["ts"]), float(e["dur"]))
-            for e in trace.get("traceEvents", [])
-            if e.get("ph") == "X" and e.get("cat") in ("kernel", "gpu_memcpy", "gpu_memset")]
-
-
 def profile_dtype(name, state_dict, batch, device, forwards, out_dir):
     import torch
 
@@ -109,6 +79,7 @@ def profile_dtype(name, state_dict, batch, device, forwards, out_dir):
     from patchmatchnet_torch.models import PatchmatchNet
     from patchmatchnet_torch.models.patchmatch import INITIAL_NUM_SAMPLES
     from patchmatchnet_torch.ops import cuda_build
+    from patchmatchnet_torch.utils.trace import busy_union_us, kernel_kind, trace_device_events
 
     dtype = {"bf16": torch.bfloat16, "f32": None}[name]
     model = PatchmatchNet(compute_dtype=dtype)
@@ -139,15 +110,17 @@ def profile_dtype(name, state_dict, batch, device, forwards, out_dir):
     forward()
     counters = cuda_build.launch_counts()
 
-    events = trace_forwards(forward, forwards, os.path.join(out_dir, f"trace_{name}.json"))
+    events = trace_device_events(forward, forwards, os.path.join(out_dir, f"trace_{name}.json"))
     kernels = [e for e in events if e[0] == "kernel"]
     start = min(s for _, _, s, _ in events)
     end = max(s + d for _, _, s, d in events)
     busy = busy_union_us([(s, s + d) for _, _, s, d in events])
     by_name = defaultdict(lambda: [0, 0.0])
+    by_kind = defaultdict(lambda: [0, 0.0])
     for _, kname, _, dur in kernels:
-        by_name[kname][0] += 1
-        by_name[kname][1] += dur
+        for table, key in ((by_name, kname), (by_kind, kernel_kind(kname))):
+            table[key][0] += 1
+            table[key][1] += dur
     table = sorted(({"kernel": k, "launches_per_forward": n / forwards,
                      "ms_per_forward": us / forwards / 1e3} for k, (n, us) in by_name.items()),
                    key=lambda r: -r["ms_per_forward"])
@@ -165,6 +138,8 @@ def profile_dtype(name, state_dict, batch, device, forwards, out_dir):
         "device_busy_ms_per_forward": busy / forwards / 1e3,
         "traced_span_ms_per_forward": (end - start) / forwards / 1e3,
         "device_idle_share": 1.0 - busy / (end - start),
+        "kinds": {k: {"launches_per_forward": n / forwards, "ms_per_forward": us / forwards / 1e3}
+                  for k, (n, us) in by_kind.items()},
         "kernels": table,
         "max_memory_allocated_mib": torch.cuda.max_memory_allocated(device) / 2**20,
     }
@@ -215,6 +190,9 @@ def main() -> int:
               f"{r['traced_span_ms_per_forward']:.2f} ms span per forward, idle share "
               f"{r['device_idle_share']:.3f}; hand kernels per forward "
               f"{r['hand_kernel_launches_per_forward']}")
+        print("  device ms per forward by kind (launches): " + ", ".join(
+            f"{k} {v['ms_per_forward']:.3f} ({v['launches_per_forward']:.0f})"
+            for k, v in sorted(r["kinds"].items(), key=lambda kv: -kv[1]["ms_per_forward"])))
         for row in r["kernels"][:15]:
             print(f"    {row['ms_per_forward']:.3f} ms x{row['launches_per_forward']:.0f} "
                   f"{row['kernel'][:110]}")
