@@ -42,6 +42,14 @@ result line:
    optimizer, reproduces the next step's loss to 1e-5; then
    `run_training` for one epoch (6 steps and validation) through the
    driver, with its launch counts.
+10. gather microbenchmarks (D1-D5) on the card: every section of
+   `patchmatchnet_torch.dev.bench_gather` at the JAX tool's shapes (the
+   `xla` row gather at the three stage shapes, D1/D2, D3, D4 and D5); each
+   section holds its kernel against the plain version and `torch.gather`
+   in every element. One line per case with kernel, plain, `torch.gather`
+   and bound ms (CUDA events around batches of calls), and the kernel's and
+   `torch.gather`'s device time from a profiler trace; launches counted
+   per section.
 
 The last line is {"ok": true, "device": {...}}; the line before it holds
 the per-kernel JSON summary.
@@ -93,6 +101,23 @@ KERNEL_INFO = {
     "coord_group_corr": ("patchmatchnet_torch/csrc/group_corr.cu",
                          "patchmatchnet_tpu/ops/pallas/windowed_similarity.py:375"),
 }
+# The gather microbenchmarks' kernels, one entry per TPU kernel of
+# tools/dev/bench_gather.py: id -> (kernel, section of the port's tool,
+# the pallas_call it replaces). D1 and D2 are one function on the card (the
+# JAX D1 writes only the first block of each 8 of its grid step).
+GATHER_KERNELS = {
+    "D1": ("gather_lanes", "lane", "tools/dev/bench_gather.py:96"),
+    "D2": ("gather_lanes", "lane", "tools/dev/bench_gather.py:112"),
+    "D3": ("gather_lanes", "biglane", "tools/dev/bench_gather.py:145"),
+    "D4": ("gather_sublanes", "sublane", "tools/dev/bench_gather.py:180"),
+    "D5": ("gather_rows", "onehot", "tools/dev/bench_gather.py:219"),
+}
+GATHER_SOURCE = "patchmatchnet_torch/csrc/gather.cu"
+# how the kernels line's ms, plain_ms and library_ms were taken
+KERNEL_TIMING = "median of 20 single calls between two CUDA events, host work included"
+GATHER_TIMING = ("median of 20 CUDA-event samples of 10 calls in a row, per call; "
+                 "device_ms and library_device_ms: device busy time per call in a "
+                 "profiler trace of 10 calls")
 INFERENCE_KERNELS = ("warp_group_corr", "eval_grid_score", "neighbor_group_corr",
                      "warp_group_corr_views", "coord_group_corr")
 BACKWARD_KERNELS = ("warp_group_corr_backward", "neighbor_group_corr_backward")
@@ -840,6 +865,60 @@ def training_path(device, scratch):
     return counts
 
 
+def gather_phase(device):
+    """Phase 10: each section of the port's gather tool at the JAX tool's
+    shapes (it raises if a kernel differs from its plain version or from
+    `torch.gather` in one element). Returns the D1-D5 entries of the
+    kernels line: per section the kernel's launches, and times and bytes
+    summed over the section's cases (a gather does no arithmetic: bound by
+    bytes)."""
+    import torch
+
+    from patchmatchnet_torch.dev import bench_gather
+    from patchmatchnet_torch.dev.bench_gather import fmt_ms
+    from patchmatchnet_torch.ops import cuda_build
+
+    def sum_or_none(values):
+        values = list(values)
+        return None if None in values else sum(values)
+
+    results, launches = {}, {}
+    for section, bench in bench_gather.SECTIONS.items():
+        cuda_build.reset_launch_counts()
+        try:
+            cases = bench(device=device)
+        except RuntimeError as e:
+            fail(f"gather section {section}: {e}")
+        launches[section] = cuda_build.launch_counts()
+        torch.cuda.empty_cache()
+        for c in cases:
+            bound_ms, by = bound(c["bytes"], 0)
+            print(f"{section} {c['case']}: kernel {c['ms']:.4f} ms plain {c['plain_ms']:.4f} ms "
+                  f"torch.gather {c['library_ms']:.4f} ms bound {bound_ms:.4f} ms ({by}, "
+                  f"{c['bytes'] / 1e6:.1f} MB); device time kernel {fmt_ms(c['device_ms'])} "
+                  f"torch.gather {fmt_ms(c['library_device_ms'])}; "
+                  f"max_abs {c['max_abs_err']:.1e}", flush=True)
+        results[section] = cases
+    print(f"gather launches per section: {launches}", flush=True)
+    entries = []
+    for did, (kernel, section, replaces) in GATHER_KERNELS.items():
+        cases = results[section]
+        n = launches[section].get(kernel, 0)
+        if n == 0 or set(launches[section]) != {kernel}:
+            fail(f"gather section {section} launched {launches[section]}, expected {kernel}")
+        bound_ms, bound_by = bound(sum(c["bytes"] for c in cases), 0)
+        entries.append({
+            "name": f"{kernel}_{did.lower()}", "route": "cuda", "source": GATHER_SOURCE,
+            "replaces": replaces, "launches": n,
+            "max_abs_err": max(c["max_abs_err"] for c in cases),
+            "ms": sum(c["ms"] for c in cases), "plain_ms": sum(c["plain_ms"] for c in cases),
+            "bound_ms": bound_ms, "bound_by": bound_by,
+            "library_ms": sum(c["library_ms"] for c in cases), "timing": GATHER_TIMING,
+            "device_ms": sum_or_none(c["device_ms"] for c in cases),
+            "library_device_ms": sum_or_none(c["library_device_ms"] for c in cases)})
+    return entries
+
+
 def main() -> int:
     if not os.path.isdir(os.path.join(REPO, "patchmatchnet_torch")):
         fail("run from a checkout of the repository (patchmatchnet_torch/ not found)")
@@ -916,8 +995,12 @@ def main() -> int:
         shutil.rmtree(scratch, ignore_errors=True)
     # launches: K1, K2, K3 and K6 from the main path's run (phase 5), K7
     # from the coordinate-input path's (phase 6), the backward kernels from
-    # the training driver's run (phase 9)
+    # the training driver's run (phase 9), D1-D5 from the gather tool's
+    # sections (phase 10)
     counts.update({name: train_counts.get(name, 0) for name in BACKWARD_KERNELS})
+
+    phase("gather microbenchmarks (D1-D5) on the card")
+    gather_entries = gather_phase(device)
 
     kernels = []
     for name, (src, replaces) in KERNEL_INFO.items():
@@ -927,7 +1010,8 @@ def main() -> int:
             "name": name, "route": "cuda", "source": src, "replaces": replaces,
             "launches": counts.get(name, 0), "max_abs_err": s["max_abs_err"],
             "ms": s["ms"], "plain_ms": s["plain_ms"], "bound_ms": bound_ms,
-            "bound_by": bound_by, "library_ms": None})
+            "bound_by": bound_by, "library_ms": None, "timing": KERNEL_TIMING})
+    kernels += gather_entries
     print(smi)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

@@ -12,8 +12,9 @@ Layout:
   (eval and train modes) and the loss.
 - `ops`: plain tensor ops and the kernel wrappers (`warp_similarity` K1
   with its backward K4, `neighbor_similarity` K3 with its backward K5,
-  `eval_tail` K2), each with a plain PyTorch twin used for CPU tensors;
-  `cuda_build` builds `csrc/` with nvcc.
+  `eval_tail` K2, `gather` the gathers D1-D5), each with a plain PyTorch
+  twin used for CPU tensors; `cuda_build` builds `csrc/` with nvcc.
+- `dev.bench_gather`: the gather microbenchmarks on the card.
 - `infer.depth`: `DepthEstimator` and `save_depth_maps`.
 - `train`: train/eval steps, Adam + MultiStep, checkpoints and the epoch
   driver `run_training` (configured by `config.Config`).

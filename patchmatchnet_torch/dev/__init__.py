@@ -1,0 +1,2 @@
+"""Developer tools of the port that run on the card: `bench_gather`, the gather
+microbenchmarks (the port of `tools/dev/bench_gather.py`)."""

@@ -50,6 +50,12 @@ _SIGNATURES = {
     "pmn_warp_group_corr_backward": [_P] * 7 + [_I] * 9 + [_P],
     # ref, gx, gy, dout, d_gx, d_gy, B, K, H, W, C, G, bf16, stream
     "pmn_neighbor_group_corr_backward": [_P] * 6 + [_I] * 7 + [_P],
+    # win, idx, out, N, A, L, stream
+    "pmn_gather_lanes": [_P] * 3 + [_I] * 3 + [_P],
+    # win, idx, out, N, S, L, stream
+    "pmn_gather_sublanes": [_P] * 3 + [_I] * 3 + [_P],
+    # win, idx, out, N, R, P, C, bf16, stream
+    "pmn_gather_rows": [_P] * 3 + [_I] * 5 + [_P],
 }
 
 _lock = threading.Lock()

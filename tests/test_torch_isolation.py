@@ -15,6 +15,9 @@ from patchmatchnet_torch.models import PatchmatchNet
 from patchmatchnet_torch.ops import (
     coord_group_corr,
     eval_grid_score,
+    gather_lanes,
+    gather_rows,
+    gather_sublanes,
     neighbor_group_corr,
     warp_group_corr,
     warp_group_corr_views,
@@ -49,9 +52,9 @@ def _script_imports(path):
 
 
 def test_port_imports_no_jax():
-    """Neither the port nor the scripts that drive it (chip_smoke.py and the
-    profiling tool, including imports inside their functions) name or load
-    a module of JAX, flax or the JAX package."""
+    """Neither the port (its gather tool too) nor the scripts that drive it
+    (chip_smoke.py and the profiling tool, including imports inside their
+    functions) name or load a module of JAX, flax or the JAX package."""
     named = set().union(*(_script_imports(p) for p in SCRIPTS))
     assert not sorted(m for m in named if m.split(".")[0] in FORBIDDEN)
     modules = sorted(m for m in named if m.split(".")[0] == "patchmatchnet_torch")
@@ -60,6 +63,7 @@ def test_port_imports_no_jax():
         "import patchmatchnet_torch, patchmatchnet_torch.compat, patchmatchnet_torch.ops\n"
         "import patchmatchnet_torch.models, patchmatchnet_torch.infer, patchmatchnet_torch.data\n"
         "import patchmatchnet_torch.train, patchmatchnet_torch.utils, patchmatchnet_torch.config\n"
+        "import patchmatchnet_torch.dev.bench_gather\n"
         f"for m in {modules!r}:\n"
         "    importlib.import_module(m)\n"
         "import chip_smoke\n"
@@ -77,6 +81,9 @@ def test_wrappers_return_plain_version_on_cpu():
     from patchmatchnet_torch.ops import (
         coord_group_corr_reference,
         eval_grid_score_reference,
+        gather_lanes_reference,
+        gather_rows_reference,
+        gather_sublanes_reference,
         neighbor_group_corr_reference,
         warp_group_corr_reference,
         warp_group_corr_views_reference,
@@ -110,6 +117,13 @@ def test_wrappers_return_plain_version_on_cpu():
                        warp_group_corr_views_reference(stack, mats, depth, ref, vw, g))
     assert torch.equal(coord_group_corr(src, ix, iy, ref, g),
                        coord_group_corr_reference(src, ix, iy, ref, g))
+    win = torch.randn((3, 8, 12), generator=gen)
+    lanes = torch.randint(0, 12, (3, 8, 12), generator=gen, dtype=torch.int32)
+    sublanes = torch.randint(0, 8, (3, 8, 12), generator=gen, dtype=torch.int32)
+    rows = torch.randint(0, 8, (3, 5), generator=gen, dtype=torch.int32)
+    assert torch.equal(gather_lanes(win, lanes), gather_lanes_reference(win, lanes))
+    assert torch.equal(gather_sublanes(win, sublanes), gather_sublanes_reference(win, sublanes))
+    assert torch.equal(gather_rows(win, rows), gather_rows_reference(win, rows))
     assert cuda_build.launch_counts() == before
 
 
@@ -126,7 +140,8 @@ def test_cuda_request_without_cuda_raises():
         DepthEstimator(PatchmatchNet(), device="cuda")
 
 
-@pytest.mark.parametrize("kernel", ["warp", "neighbor", "eval", "views", "coord"])
+@pytest.mark.parametrize("kernel", ["warp", "neighbor", "eval", "views", "coord", "lanes",
+                                    "sublanes", "rows"])
 def test_wrappers_refuse_non_cpu_non_cuda_tensors(kernel):
     """A tensor that is neither on the CPU nor on a CUDA device never
     reaches a plain version: the wrapper raises before any launch."""
@@ -146,6 +161,13 @@ def test_wrappers_refuse_non_cpu_non_cuda_tensors(kernel):
                                   torch.empty((1, 1, 8, 12), **meta), 4)
         elif kernel == "coord":
             coord_group_corr(f, grid[0], grid[1], f, 4)
+        elif kernel in ("lanes", "sublanes"):
+            gather = gather_lanes if kernel == "lanes" else gather_sublanes
+            gather(torch.empty((2, 8, 12), **meta),
+                   torch.empty((2, 8, 12), dtype=torch.int32, **meta))
+        elif kernel == "rows":
+            gather_rows(torch.empty((2, 8, 12), **meta),
+                        torch.empty((2, 5), dtype=torch.int32, **meta))
         else:
             eval_grid_score(torch.empty((1, 8, 12, 4), **meta),
                             torch.empty((1, 8, 12, 4), **meta), grid,

@@ -288,3 +288,65 @@ def test_fused_model_on_card_equals_unfused(device, dtype):
     counts = cuda_build.launch_counts()
     assert counts["warp_group_corr"] == 20 and "warp_group_corr_views" not in counts
     assert torch.equal(fused[0], per_view[0]) and torch.equal(fused[1], per_view[1])
+
+
+def _gather_case(device, shape, index_size, seed=5):
+    gen = torch.Generator(device=device).manual_seed(seed)
+    win = torch.randn(shape, generator=gen, device=device)
+    idx = torch.randint(0, index_size, shape, generator=gen, device=device, dtype=torch.int32)
+    return win, idx
+
+
+@pytest.mark.parametrize("shape", [(16, 32, 128), (5, 256, 128), (3, 7, 12)])
+def test_gather_lanes_kernel_matches_plain_and_torch_gather(device, shape):
+    """D1-D3: bit for bit against the plain version and torch.gather (int64
+    index), one launch counted."""
+    win, idx = _gather_case(device, shape, shape[2])
+    before = cuda_build.launch_counts().get("gather_lanes", 0)
+    got = ops.gather_lanes(win, idx)
+    assert cuda_build.launch_counts()["gather_lanes"] == before + 1
+    assert torch.equal(got, ops.gather_lanes_reference(win, idx))
+    assert torch.equal(got, torch.gather(win, 2, idx.long()))
+
+
+@pytest.mark.parametrize("shape", [(16, 8, 128), (3, 5, 20), (2, 1, 4)])
+def test_gather_sublanes_kernel_matches_plain_and_torch_gather(device, shape):
+    """D4: bit for bit against the plain version and torch.gather."""
+    win, idx = _gather_case(device, shape, shape[1])
+    before = cuda_build.launch_counts().get("gather_sublanes", 0)
+    got = ops.gather_sublanes(win, idx)
+    assert cuda_build.launch_counts()["gather_sublanes"] == before + 1
+    assert torch.equal(got, ops.gather_sublanes_reference(win, idx))
+    assert torch.equal(got, torch.gather(win, 1, idx.long()))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("n,r,p,c", [(4, 128, 16, 64), (2, 256, 33, 256), (1, 700, 50, 8)])
+def test_gather_rows_kernel_matches_plain_and_torch_gather(device, dtype, n, r, p, c):
+    """D5 and the xla row gather: f32 and bf16 rows, bit for bit against the
+    plain version and torch.gather on the index expanded to C."""
+    gen = torch.Generator(device=device).manual_seed(6)
+    win = torch.randn((n, r, c), generator=gen, device=device).to(dtype)
+    idx = torch.randint(0, r, (n, p), generator=gen, device=device, dtype=torch.int32)
+    before = cuda_build.launch_counts().get("gather_rows", 0)
+    got = ops.gather_rows(win, idx)
+    assert cuda_build.launch_counts()["gather_rows"] == before + 1
+    assert got.dtype == dtype and got.shape == (n, p, c)
+    assert torch.equal(got, ops.gather_rows_reference(win, idx))
+    assert torch.equal(got, torch.gather(win, 1, idx.long()[..., None].expand(n, p, c)))
+
+
+def test_gather_wrappers_reject_what_the_kernels_do_not_take(device):
+    win, idx = _gather_case(device, (2, 4, 6), 6)
+    with pytest.raises(ValueError, match="multiple of 4"):
+        ops.gather_lanes(win, idx)
+    win, idx = _gather_case(device, (2, 4, 8), 4)
+    with pytest.raises(TypeError):
+        ops.gather_sublanes(win, idx.long())
+    win9, idx9 = _gather_case(device, (2, 9, 8), 9)
+    with pytest.raises(ValueError, match="S <= 8"):
+        ops.gather_sublanes(win9, idx9)
+    with pytest.raises(ValueError, match="16 bytes"):
+        ops.gather_rows(win[:, :, :6].contiguous().to(torch.bfloat16), idx[:, :, 0].contiguous())
+    with pytest.raises(IndexError):
+        ops.gather_rows_reference(win, idx[:, :, 0].contiguous() + 4)
