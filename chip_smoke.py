@@ -9,11 +9,14 @@ result line:
 2. build: compiles `patchmatchnet_torch/csrc/*.cu` with nvcc (sm_90a).
 3. kernel parity: K1, K2, K3, K6 and K7 against their plain PyTorch
    versions on the card, at the main paths' stage shapes, with bf16 and
-   f32 payloads; kernel and plain times (median of CUDA-event timings) and
-   each kernel's bound (the larger of its bytes over the card's memory
-   rate and its f32 operations over its f32 rate). K6 also against the
-   per-view route it replaces (4 K1 launches and the weighted sum), K7 on
-   the warp coordinates against K1.
+   f32 payloads; kernel and plain times (median of CUDA-event timings),
+   each kernel's device time (busy time per call in a torch.profiler trace
+   of 10 calls) and its bound (the larger of its bytes over the card's
+   memory rate and its f32 operations over its f32 rate). Fails unless K6
+   equals the per-view route it replaces (4 K1 launches and the weighted
+   sum) and K7 on the warp coordinates equals K1, both to the bit; K7 on
+   those coordinates (the thread-per-sample design computing K1's values)
+   is timed beside K1.
 4. f32 golden parity: the f32 model (kernels on, TF32 off) against the
    captured reference outputs in tests/golden/.
 5. main path: a 1152x864, 5-view synthetic scene through MVSDataset ->
@@ -22,13 +25,13 @@ result line:
    K3 3); reports ms per map, MPix/s and peak device memory.
 6. coordinate-input path: a plane sweep through `coord_group_corr` (K7) on
    the scene's bf16 features at each stage's resolution, C and G (D 64, 16,
-   8; 4 source views): K7 launches, K7 against K1 on the same
-   coordinates, and the winner-take-all depth against the plane.
+   8; 4 source views): K7 launches, K7 equal to K1 on the same
+   coordinates to the bit, and the winner-take-all depth against the plane.
 7. backward-kernel parity: K4 and K5 against their plain versions
    (autograd through the plain forwards) at the training stage shapes of
    640x512, B=2, bf16 and f32 payloads; errors relative to the largest
-   gradient entry; kernel and plain backward times per launch and per
-   train step.
+   gradient entry; kernel and plain backward times and the wrapper's
+   device time per launch and per train step.
 8. f32 train-step parity: one f32 train step (kernels on, TF32 off) on a
    64x80, 3-view plane batch against the same step on the CPU (plain
    versions): loss and per-leaf gradient cosine, and the step's launches.
@@ -113,8 +116,10 @@ GATHER_KERNELS = {
     "D5": ("gather_rows", "onehot", "tools/dev/bench_gather.py:219"),
 }
 GATHER_SOURCE = "patchmatchnet_torch/csrc/gather.cu"
-# how the kernels line's ms, plain_ms and library_ms were taken
-KERNEL_TIMING = "median of 20 single calls between two CUDA events, host work included"
+# how the kernels line's ms, plain_ms, device_ms and library_ms were taken
+KERNEL_TIMING = ("ms and plain_ms: median of 20 single calls between two CUDA events, host "
+                 "work included; device_ms: device busy time per call in a profiler trace of "
+                 "10 calls")
 GATHER_TIMING = ("median of 20 CUDA-event samples of 10 calls in a row, per call; "
                  "device_ms and library_device_ms: device busy time per call in a "
                  "profiler trace of 10 calls")
@@ -196,15 +201,19 @@ def bound(work_bytes: float, work_ops: float):
 
 
 def new_summary(names):
-    return {name: {"max_abs_err": 0.0, "ms": 0.0, "plain_ms": 0.0, "bytes": 0, "ops": 0}
+    return {name: {"max_abs_err": 0.0, "ms": 0.0, "plain_ms": 0.0, "device_ms": 0.0,
+                   "bytes": 0, "ops": 0}
             for name in names}
 
 
-def add_time(entry, name, args, out, launches, ms, plain_ms):
-    """Add `launches` calls of `name` at these inputs to a summary entry."""
+def add_time(entry, name, args, out, launches, ms, plain_ms, dev_ms):
+    """Add `launches` calls of `name` at these inputs to a summary entry
+    (its device_ms becomes None once a device time is missing)."""
     work_bytes, work_ops = kernel_work(name, args, out)
     entry["ms"] += ms * launches
     entry["plain_ms"] += plain_ms * launches
+    entry["device_ms"] = (None if dev_ms is None or entry["device_ms"] is None
+                          else entry["device_ms"] + dev_ms * launches)
     entry["bytes"] += work_bytes * launches
     entry["ops"] += work_ops * launches
 
@@ -269,10 +278,12 @@ def per_view_route(src, mats, depth, ref, view_weights, groups):
 
 
 def kernel_parity(device):
-    """Phase 3: returns {kernel: {"max_abs_err", "ms", "plain_ms", "bytes",
-    "ops"}} with times and work summed over the kernel's launches per
-    pass of its path (bf16 payloads): a forward of the main path for K1,
-    K2, K3 and K6, a plane sweep for K7."""
+    """Phase 3: returns {kernel: {"max_abs_err", "ms", "plain_ms",
+    "device_ms", "bytes", "ops"}} with times and work summed over the
+    kernel's launches per pass of its path (bf16 payloads): a forward of the
+    main path for K1, K2, K3 and K6, a plane sweep for K7. Fails unless K6
+    equals the per-view route and K7 on the warp coordinates equals K1, to
+    the bit, in bf16 and f32."""
     import torch
 
     from patchmatchnet_torch import ops
@@ -282,6 +293,7 @@ def kernel_parity(device):
         evaluation_offsets,
     )
     from patchmatchnet_torch.ops.warp import warp_coords, warp_proj_coeffs
+    from patchmatchnet_torch.utils.trace import device_ms, fmt_ms
 
     gen = torch.Generator(device=device).manual_seed(0)
     # (stage, C, G, scale, [(D, launches per forward of K1, of K2)],
@@ -294,6 +306,9 @@ def kernel_parity(device):
     summary = new_summary(INFERENCE_KERNELS)
     route = {"ms": 0.0, "max_abs_diff": 0.0}  # K6 against the per-view route
     k7_vs_k1 = [0.0]
+    # K1 against K7 on K1's warp coordinates (K7 keeps the thread-per-sample
+    # design), device ms per forward of the main path
+    baseline = {"k1": 0.0, "k7": 0.0}
 
     def record(name, label, args, got, want, launches, timed, fn, plain_fn, interval):
         err = (got - want).abs()
@@ -304,11 +319,11 @@ def kernel_parity(device):
         s = summary[name]
         s["max_abs_err"] = max(s["max_abs_err"], max_abs)
         if timed and launches:
-            ms, plain_ms = time_ms(fn), time_ms(plain_fn)
-            add_time(s, name, args, got, launches, ms, plain_ms)
+            ms, plain_ms, dev_ms = time_ms(fn), time_ms(plain_fn), device_ms(fn)
+            add_time(s, name, args, got, launches, ms, plain_ms, dev_ms)
             work_ms, by = bound(*kernel_work(name, args, got))
-            line += (f" | kernel {ms:.4f} ms plain {plain_ms:.4f} ms bound {work_ms:.4f} ms "
-                     f"({by}) (x{launches}/pass)")
+            line += (f" | kernel {ms:.4f} ms device {fmt_ms(dev_ms)} plain {plain_ms:.4f} ms "
+                     f"bound {work_ms:.4f} ms ({by}) (x{launches}/pass)")
         print(line, flush=True)
         if not ok:
             fail(f"{name} {label} exceeds max {tol_max} / mean {tol_mean}")
@@ -343,6 +358,17 @@ def kernel_parity(device):
                 ix, iy = warp_coords(mat12, depth, h, w)
                 same = (ops.coord_group_corr(src, ix, iy, ref, g) - k1).abs().max().item()
                 k7_vs_k1[0] = max(k7_vs_k1[0], same)
+                if timed:
+                    k1_fn = lambda: ops.warp_group_corr(*args)  # noqa: E731
+                    k7_fn = lambda: ops.coord_group_corr(src, ix, iy, ref, g)  # noqa: E731
+                    k7_ms, k1_ms, k1_dev, k7_dev = (time_ms(k7_fn), time_ms(k1_fn),
+                                                    device_ms(k1_fn), device_ms(k7_fn))
+                    print(f"K1 against K7 on its warp coordinates {label}: K1 {k1_ms:.4f} ms "
+                          f"device {fmt_ms(k1_dev)}, K7 {k7_ms:.4f} ms device {fmt_ms(k7_dev)} "
+                          f"(x{launches}/forward)", flush=True)
+                    for key, dev in (("k1", k1_dev), ("k7", k7_dev)):
+                        if baseline[key] is not None:
+                            baseline[key] = None if dev is None else baseline[key] + dev * launches
                 jx = ix + 1.5 * torch.randn(ix.shape, generator=gen, device=device)
                 jy = iy + 1.5 * torch.randn(iy.shape, generator=gen, device=device)
                 args = (src, jx, jy, ref, g)
@@ -383,10 +409,15 @@ def kernel_parity(device):
                        launches, timed, lambda: ops.eval_grid_score(*args),
                        lambda: ops.eval_grid_score_reference(*args), cfg.interval_scale)
     k6 = summary["warp_group_corr_views"]
-    print(f"K6 per forward: {k6['ms']:.4f} ms against the per-view route it "
-          f"replaces (16 K1 launches and the weighted sum) {route['ms']:.4f} ms; max |K6 - "
-          f"per-view route| {route['max_abs_diff']:.3e} (bf16 and f32); max |K7 - K1| on the "
-          f"warp coordinates {k7_vs_k1[0]:.3e}", flush=True)
+    print(f"K6 per forward: {k6['ms']:.4f} ms (device {fmt_ms(k6['device_ms'])}) against the "
+          f"per-view route it replaces (16 K1 launches and the weighted sum) {route['ms']:.4f} "
+          f"ms; max |K6 - per-view route| {route['max_abs_diff']:.3e} (bf16 and f32); max "
+          f"|K7 - K1| on the warp coordinates {k7_vs_k1[0]:.3e}; K1 per forward device "
+          f"{fmt_ms(baseline['k1'])}, K7 on its coordinates {fmt_ms(baseline['k7'])}", flush=True)
+    if route["max_abs_diff"] != 0.0:
+        fail(f"K6 differs from the per-view route by {route['max_abs_diff']:.3e}")
+    if k7_vs_k1[0] != 0.0:
+        fail(f"K7 on the warp coordinates differs from K1 by {k7_vs_k1[0]:.3e}")
     return summary
 
 
@@ -557,7 +588,7 @@ def coordinate_path(device, model, scene):
         print(f"plane sweep stage{stage} C{f.shape[-1]} G{g} D{depth.shape[1]} "
               f"{f.shape[1]}x{f.shape[2]}, {n - 1} views: median |WTA depth - GT| {err:.4f} "
               f"(plane at {PLANE_Z}); max |K7 - K1| {k1_diff:.3e}", flush=True)
-        if k1_diff > parity_tol("coord_group_corr", 0.0)[0]:
+        if k1_diff != 0.0:
             fail(f"K7 on the warp coordinates differs from K1 at stage {stage}")
         if err > 0.05 * PLANE_Z:
             fail(f"plane sweep stage {stage}: median depth error above 5% of the plane")
@@ -596,6 +627,7 @@ def backward_parity(device):
         evaluation_offsets,
     )
     from patchmatchnet_torch.ops.warp import warp_proj_coeffs
+    from patchmatchnet_torch.utils.trace import device_ms, fmt_ms
 
     gen = torch.Generator(device=device).manual_seed(1)
     b = TRAIN_BATCH
@@ -619,11 +651,12 @@ def backward_parity(device):
 
     def timed(name, label, launches, args, kernel_fn, plain_fn):
         out = kernel_fn()
-        ms, plain_ms = time_ms(kernel_fn), time_ms(plain_fn)
-        add_time(summary[name], name, args, out, launches, ms, plain_ms)
+        ms, plain_ms, dev_ms = time_ms(kernel_fn), time_ms(plain_fn), device_ms(kernel_fn)
+        add_time(summary[name], name, args, out, launches, ms, plain_ms, dev_ms)
         work_ms, by = bound(*kernel_work(name, args, out))
-        print(f"{name} {label}: wrapper {ms:.4f} ms plain {plain_ms:.4f} ms bound "
-              f"{work_ms:.4f} ms ({by}) (x{launches}/train step)", flush=True)
+        print(f"{name} {label}: wrapper {ms:.4f} ms device {fmt_ms(dev_ms)} plain "
+              f"{plain_ms:.4f} ms bound {work_ms:.4f} ms ({by}) (x{launches}/train step)",
+              flush=True)
 
     for stage, c, g, scale, depths in stages:
         h, w = TRAIN_H // scale, TRAIN_W // scale
@@ -875,8 +908,8 @@ def gather_phase(device):
     import torch
 
     from patchmatchnet_torch.dev import bench_gather
-    from patchmatchnet_torch.dev.bench_gather import fmt_ms
     from patchmatchnet_torch.ops import cuda_build
+    from patchmatchnet_torch.utils.trace import fmt_ms
 
     def sum_or_none(values):
         values = list(values)
@@ -1010,7 +1043,8 @@ def main() -> int:
             "name": name, "route": "cuda", "source": src, "replaces": replaces,
             "launches": counts.get(name, 0), "max_abs_err": s["max_abs_err"],
             "ms": s["ms"], "plain_ms": s["plain_ms"], "bound_ms": bound_ms,
-            "bound_by": bound_by, "library_ms": None, "timing": KERNEL_TIMING})
+            "bound_by": bound_by, "library_ms": None, "timing": KERNEL_TIMING,
+            "device_ms": s["device_ms"]})
     kernels += gather_entries
     print(smi)
     print(json.dumps({"kernels": kernels}))

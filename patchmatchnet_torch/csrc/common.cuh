@@ -8,28 +8,31 @@ namespace pmn {
 
 constexpr int kThreads = 256;
 
-// VecLoad<T>::load reads N consecutive elements of T from a 16-byte aligned
-// address in one 16-byte transaction and widens them to f32.
+// VecLoad<T>: N consecutive elements of T in one 16-byte vector. `raw`
+// reads one from a 16-byte aligned address, `widen` converts it to f32, and
+// `load` does both.
 template <typename T>
 struct VecLoad;
 
 template <>
 struct VecLoad<float> {
   static constexpr int N = 4;
-  __device__ __forceinline__ static void load(const float* p, float* out) {
-    const float4 v = __ldg(reinterpret_cast<const float4*>(p));
-    out[0] = v.x;
-    out[1] = v.y;
-    out[2] = v.z;
-    out[3] = v.w;
+  __device__ __forceinline__ static void widen(const uint4& v, float* out) {
+    out[0] = __uint_as_float(v.x);
+    out[1] = __uint_as_float(v.y);
+    out[2] = __uint_as_float(v.z);
+    out[3] = __uint_as_float(v.w);
   }
+  __device__ __forceinline__ static uint4 raw(const float* p) {
+    return __ldg(reinterpret_cast<const uint4*>(p));
+  }
+  __device__ __forceinline__ static void load(const float* p, float* out) { widen(raw(p), out); }
 };
 
 template <>
 struct VecLoad<__nv_bfloat16> {
   static constexpr int N = 8;
-  __device__ __forceinline__ static void load(const __nv_bfloat16* p, float* out) {
-    const uint4 v = __ldg(reinterpret_cast<const uint4*>(p));
+  __device__ __forceinline__ static void widen(const uint4& v, float* out) {
     const __nv_bfloat162* h = reinterpret_cast<const __nv_bfloat162*>(&v);
 #pragma unroll
     for (int i = 0; i < 4; ++i) {
@@ -37,6 +40,12 @@ struct VecLoad<__nv_bfloat16> {
       out[2 * i] = f.x;
       out[2 * i + 1] = f.y;
     }
+  }
+  __device__ __forceinline__ static uint4 raw(const __nv_bfloat16* p) {
+    return __ldg(reinterpret_cast<const uint4*>(p));
+  }
+  __device__ __forceinline__ static void load(const __nv_bfloat16* p, float* out) {
+    widen(raw(p), out);
   }
 };
 
@@ -131,42 +140,75 @@ __device__ __forceinline__ Taps border_taps(float sx, float sy, int Hs, int Ws) 
   return t;
 }
 
+// Pointers to the four corners of a sample's cell in the [Hs, Ws, C] map
+// `base` (in the order of Taps::w), from the cell's first pixel
+// y0 * Ws + x0. A corner off the map gets a pointer that is never read.
+template <typename T, int C>
+struct Corners {
+  const T* p[4];
+  Corners() = default;
+  __device__ __forceinline__ Corners(const T* base, long long cell, int Ws) {
+    p[0] = base + cell * C;
+    p[1] = base + (cell + 1) * C;
+    p[2] = base + (cell + Ws) * C;
+    p[3] = base + (cell + Ws + 1) * C;
+  }
+};
+
+// One 16-byte vector of a sample, in two steps. `load_taps` reads channels
+// [c, c + N) of the sample's valid corners (invalid ones are not read);
+// `correlate_taps` weights them bilinearly (valid corners only, t = 0..3 in
+// order), multiplies by the reference channels rv[0..N) and adds each
+// channel i into its group sum acc[i / CG], in channel order; acc points at
+// the sum of the group that holds channel c. Every sample of K1, K3, K6 and
+// K7 is reduced through these two steps, with explicit roundings, so the
+// thread-per-sample kernel and the tiled kernel compute the same bits.
+template <typename T, int C>
+__device__ __forceinline__ void load_taps(const Corners<T, C>& corner, int c, const Taps& taps,
+                                          uint4 (&raw)[4]) {
+#pragma unroll
+  for (int t = 0; t < 4; ++t)
+    raw[t] = taps.valid[t] ? VecLoad<T>::raw(corner.p[t] + c) : make_uint4(0u, 0u, 0u, 0u);
+}
+
+template <typename T, int CG>
+__device__ __forceinline__ void correlate_taps(const uint4 (&raw)[4], const Taps& taps,
+                                               const float* rv, float* acc) {
+  constexpr int N = VecLoad<T>::N;
+  float warped[N], tap[N];
+#pragma unroll
+  for (int i = 0; i < N; ++i) warped[i] = 0.0f;
+#pragma unroll
+  for (int t = 0; t < 4; ++t) {
+    if (!taps.valid[t]) continue;
+    VecLoad<T>::widen(raw[t], tap);
+#pragma unroll
+    for (int i = 0; i < N; ++i) warped[i] = __fmaf_rn(tap[i], taps.w[t], warped[i]);
+  }
+#pragma unroll
+  for (int i = 0; i < N; ++i) acc[i / CG] = __fmaf_rn(warped[i], rv[i], acc[i / CG]);
+}
+
 // Group sums of one sample: the bilinear tap of the [Hs, Ws, C] map `base`
 // at the cell `taps`, times the reference pixel `r` [C], summed over the
-// C / G channels of each group into acc[G] (not yet divided by C / G).
-// Channels are read in 16-byte vectors; invalid corners are not read. K1,
-// K3, K6 and K7 reduce every sample through this one function, so they
-// share its arithmetic to the bit.
+// C / G channels of each group into acc[G] (not yet divided by C / G), one
+// `load_taps` and `correlate_taps` step per 16-byte vector.
 template <typename T, int C, int G>
 __device__ __forceinline__ void group_sums(const T* base, int Ws, const Taps& taps,
                                            const T* r, float (&acc)[G]) {
   constexpr int N = VecLoad<T>::N;
   constexpr int CG = C / G;
-  static_assert(C % N == 0 && C % G == 0, "channel layout");
-  const long long x0 = taps.x0, y0 = taps.y0;
-  const T* corner[4] = {
-      base + (y0 * Ws + x0) * C,
-      base + (y0 * Ws + x0 + 1) * C,
-      base + ((y0 + 1) * Ws + x0) * C,
-      base + ((y0 + 1) * Ws + x0 + 1) * C,
-  };
+  static_assert(C % N == 0 && C % G == 0 && (N % CG == 0 || CG % N == 0), "channel layout");
+  const Corners<T, C> corner(base, (long long)taps.y0 * Ws + taps.x0, Ws);
 #pragma unroll
   for (int g = 0; g < G; ++g) acc[g] = 0.0f;
 #pragma unroll
   for (int c = 0; c < C; c += N) {
-    float warped[N], tap[N], rv[N];
-#pragma unroll
-    for (int i = 0; i < N; ++i) warped[i] = 0.0f;
-#pragma unroll
-    for (int t = 0; t < 4; ++t) {
-      if (!taps.valid[t]) continue;
-      VecLoad<T>::load(corner[t] + c, tap);
-#pragma unroll
-      for (int i = 0; i < N; ++i) warped[i] += tap[i] * taps.w[t];
-    }
+    float rv[N];
+    uint4 raw[4];
     VecLoad<T>::load(r + c, rv);
-#pragma unroll
-    for (int i = 0; i < N; ++i) acc[(c + i) / CG] += warped[i] * rv[i];
+    load_taps<T, C>(corner, c, taps, raw);
+    correlate_taps<T, CG>(raw, taps, rv, acc + c / CG);
   }
 }
 

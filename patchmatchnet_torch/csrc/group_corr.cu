@@ -7,57 +7,92 @@
 //   `_pallas_windowed_proj`). Warp coordinates come from the [B,12]
 //   projection and the depth hypotheses; zeros padding, align_corners=True;
 //   samples with pz <= 1e-3 are pushed to (W, H) and read zero.
+// - K6: windowed_similarity.py `_kernel_proj_views` (launched by
+//   `_pallas_windowed_proj_views`), the fused-views inference path: K1 for
+//   all V source views, weighted by per-pixel view weights and summed,
+//   out = sum_v vw[b, v] * K1(src[b, v], mats[b, v]). Each view's K1 value
+//   is multiplied by its weight with __fmul_rn and added to a register sum
+//   with __fadd_rn in view order 0..V-1, so K6 equals, bit for bit, the
+//   per-view route it replaces (V K1 volumes, each times its weights, added
+//   to a zeroed sum as separate tensor ops).
 // - K3: similarity_kernel.py `_kernel` (launched by `_pallas_impl`) as used
 //   by `_feature_weight_corr`: coordinates from the eval grid (gx, gy),
 //   align_corners=False with border clamping, the reference feature as the
 //   source and the Ke neighbours in the depth slot. The [P, 4C] taps array
 //   the TPU path gathers first never exists here.
-// - K6: windowed_similarity.py `_kernel_proj_views` (launched by
-//   `_pallas_windowed_proj_views`), the fused-views inference path: K1 for
-//   all V source views, weighted by per-pixel view weights and summed,
-//   out = sum_v vw[b, v] * K1(src[b, v], mats[b, v]). The TPU kernel walked
-//   the views along a sequential grid axis and revisited its output block
-//   once per view; here the view loop runs inside the thread, and each
-//   view's K1 value is multiplied by its weight with __fmul_rn and added to
-//   a register sum with __fadd_rn in view order 0..V-1, so K6 equals, bit
-//   for bit, the per-view route it replaces (V K1 volumes, each times its
-//   weights, added to a zeroed sum as separate tensor ops).
 // - K7: windowed_similarity.py `_kernel` (launched by `_pallas_windowed`):
 //   K1 with the source pixel coordinates (ix, iy) given per sample instead
 //   of computed from the projection. K1 is "warp, then K7": both pick a
-//   sample's cell with `coord_taps`.
+//   sample's cell with `coord_taps` and reduce it with `load_taps` and
+//   `correlate_taps` (common.cuh), so K7 on K1's warp coordinates equals K1
+//   to the bit.
 //
-// What bounds it on an H100: the tap reads. Each output sample reads
-// 4 corners x C channels of the source plus C reference channels (stage 3
-// bf16: 640 B) per view to produce G f32 values (32 B), so the kernel is
-// bound by L1/L2 load throughput, not by HBM or arithmetic. The source maps
-// are at most 8 MB per view (stage 1, 432x576x16 bf16; 32 MB for K6's four)
-// and stay resident in the 50 MB L2.
-// Design: one thread per (b, d, pixel) with x fastest, so the G output
-// stores of a warp are coalesced and neighbouring threads read neighbouring
-// source pixels; channels are read in 16-byte vectors; the group sums live
-// in registers. The TPU kernel's source window (and its escape counter)
-// does not exist: every sample reads the source directly, so none is lost.
+// What bounds K1 and K6 on an H100: not HBM. The source maps (at most 8 MB
+// a view, 32 MB for K6's four at stage 1) stay in the 50 MB L2, and a
+// launch needs 28-84 MB of device-memory traffic. Each sample reads 4
+// corner rows of C channels (stage 3 bf16: 4 x 128 B) wherever its warp
+// lands, so the limits are the L1 requests those reads make and the
+// instructions issued per sample: the warp (two IEEE divisions), and per
+// channel a widening and 4 + 1 multiply-adds, the same in every design.
+//
+// K1 and K6: the tiled kernel, `warp_corr_tile_kernel`.
+// - Lanes split across channels. A lane owns KC consecutive channels, whole
+//   16-byte vectors and whole groups: one group of 8 at stage 3 (bf16: one
+//   vector; f32: two), two groups of 4 in one bf16 vector at stages 2 and
+//   1, one group of 4 in one f32 vector. L = C / KC neighbouring lanes hold
+//   one sample, so one load instruction reads 32 / L whole corner rows
+//   (stage 3 bf16: 4 rows of 128 B) in whole 32-byte sectors, where the
+//   thread-per-sample design touched 32 rows at 16 B each. No group sum
+//   crosses lanes, and each lane sums its groups with `correlate_taps` in
+//   channel order, corners t = 0..3 in order, invalid corners skipped: the
+//   arithmetic of the thread-per-sample kernel, to the bit.
+// - Tile. A block of 256 threads owns TX = 256 / L consecutive reference
+//   pixels (row-major over H x W, so a tile may cross a row) and a chunk
+//   of kHypChunk hypotheses. It reads the chunk's depths, each view's
+//   projection and (K6) each pixel's view weights once, into shared
+//   memory; each lane reads its reference channels once, into registers,
+//   for every hypothesis and view of the chunk.
+// - One warp per sample. A pixel's samples s = j * V + v (hypothesis j,
+//   view v) go L at a time: lane p computes the cell of sample s0 + p with
+//   the unchanged `warp_taps` (K4 shares it, so forward and backward pick
+//   the same cells), and the L lanes take each cell in turn by shuffle
+//   (first pixel, fractions, validity; the weights are recomputed from the
+//   fractions by the same `set_weights`, so they are the warping lane's to
+//   the bit). At 64 registers a thread 4 blocks fit an SM; issuing two
+//   samples' loads together took more registers and was slower.
+// - Staged stores. The output is [B, G, D, H, W], x fastest, while a lane
+//   ends with its pixel's GL groups of each hypothesis. The block writes
+//   them to shared memory and then stores each (g, d) row of TX consecutive
+//   pixels with consecutive threads, 16 bytes each where H x W is a
+//   multiple of 4 and the tile lies inside it, masking ragged ends (H x W
+//   not a multiple of TX, D not a multiple of kHypChunk) otherwise. K6's
+//   weights and projections take V * (TX + 12) floats of dynamic shared
+//   memory, within the 48 KB a block gets without opting in for V <= 50 at
+//   every stage; a launch with more views fails, and the wrapper raises.
+// The TPU kernel's source window (and its escape counter) does not exist:
+// every sample reads the source directly, so none is lost.
+//
+// K3 and K7 keep the thread-per-sample design (`group_corr_kernel`): one
+// thread per (b, d, pixel), x fastest, each reading its sample's 4 corners
+// x C channels in 16-byte vectors. K7 has no model path and is the
+// measured baseline of that design beside K1; K3 (3 launches per forward)
+// comes later in the queue of redesigns.
 
 #include "common.cuh"
 
 namespace pmn {
 
-// Where a sample's coordinates come from.
+// Where the thread-per-sample kernel's coordinates come from.
 enum class Coords {
-  kWarp,    // K1: warp of (x, y) at depth[idx] through mat12[b]
   kBorder,  // K3: normalized grid (gx, gy)[idx], align_corners=False, border
   kPixels,  // K7: source pixel coordinates (ix, iy)[idx], align_corners=True
-  kViews,   // K6: kWarp for each of V views, weighted by vw and summed
 };
 
 template <typename T, int C, int G, Coords kMode>
 __global__ void __launch_bounds__(kThreads) group_corr_kernel(
-    const T* __restrict__ src, const T* __restrict__ ref,
-    const float* __restrict__ mat12, const float* __restrict__ depth,
-    const float* __restrict__ gx, const float* __restrict__ gy,
-    const float* __restrict__ vw, float* __restrict__ out, int B, int V, int D, int H,
-    int W, int Hs, int Ws) {
+    const T* __restrict__ src, const T* __restrict__ ref, const float* __restrict__ gx,
+    const float* __restrict__ gy, float* __restrict__ out, int B, int D, int H, int W, int Hs,
+    int Ws) {
   constexpr int CG = C / G;
 
   const long long hw = (long long)H * W;
@@ -65,73 +100,224 @@ __global__ void __launch_bounds__(kThreads) group_corr_kernel(
   const long long idx = (long long)blockIdx.x * blockDim.x + threadIdx.x;
   if (idx >= total) return;
   const long long pix = idx % hw;
-  const int x = (int)(pix % W);
-  const int y = (int)(pix / W);
   const long long bd = idx / hw;
   const int d = (int)(bd % D);
   const int b = (int)(bd / D);
-  const T* r = ref + ((long long)b * hw + pix) * C;
 
-  float res[G];
-  if constexpr (kMode == Coords::kViews) {
-#pragma unroll
-    for (int g = 0; g < G; ++g) res[g] = 0.0f;
-    const float dep = depth[idx];
-    for (int v = 0; v < V; ++v) {
-      const long long bv = (long long)b * V + v;
-      const Taps taps = warp_taps(mat12 + bv * 12, (float)x, (float)y, dep, Hs, Ws);
-      float acc[G];
-      group_sums<T, C, G>(src + bv * Hs * Ws * C, Ws, taps, r, acc);
-      const float weight = vw[bv * hw + pix];
-#pragma unroll
-      for (int g = 0; g < G; ++g)
-        res[g] = __fadd_rn(res[g], __fmul_rn(__fmul_rn(acc[g], 1.0f / CG), weight));
-    }
+  Taps taps;
+  if constexpr (kMode == Coords::kBorder) {
+    taps = border_taps(unnormalize_border(gx[idx], Ws), unnormalize_border(gy[idx], Hs), Hs, Ws);
   } else {
-    Taps taps;
-    if constexpr (kMode == Coords::kWarp) {
-      taps = warp_taps(mat12 + b * 12, (float)x, (float)y, depth[idx], Hs, Ws);
-    } else if constexpr (kMode == Coords::kBorder) {
-      taps = border_taps(unnormalize_border(gx[idx], Ws), unnormalize_border(gy[idx], Hs),
-                         Hs, Ws);
-    } else {
-      taps = coord_taps(gx[idx], gy[idx], Hs, Ws);
-    }
-    group_sums<T, C, G>(src + (long long)b * Hs * Ws * C, Ws, taps, r, res);
-#pragma unroll
-    for (int g = 0; g < G; ++g) res[g] *= 1.0f / CG;
+    taps = coord_taps(gx[idx], gy[idx], Hs, Ws);
   }
-
+  float res[G];
+  group_sums<T, C, G>(src + (long long)b * Hs * Ws * C, Ws, taps,
+                      ref + ((long long)b * hw + pix) * C, res);
   float* o = out + ((long long)b * G * D + d) * hw + pix;
 #pragma unroll
-  for (int g = 0; g < G; ++g) o[(long long)g * D * hw] = res[g];
+  for (int g = 0; g < G; ++g) o[(long long)g * D * hw] = res[g] * (1.0f / CG);
+}
+
+// Hypotheses one block of the tiled kernel computes for its pixels.
+constexpr int kHypChunk = 8;
+
+// The tiled kernel's lane layout for a (payload, C, G) instantiation.
+template <typename T, int C, int G>
+struct TileLayout {
+  static constexpr int N = VecLoad<T>::N;     // channels in a 16-byte vector
+  static constexpr int CG = C / G;            // channels in a group
+  static constexpr int KC = N > CG ? N : CG;  // channels a lane owns
+  static constexpr int L = C / KC;            // lanes of one sample
+  static constexpr int GL = KC / CG;          // groups a lane owns
+  static constexpr int TX = kThreads / L;     // reference pixels of a block
+  static_assert(C % KC == 0 && KC % N == 0 && KC % CG == 0 && 32 % L == 0, "lane layout");
+};
+
+// K1 (kViews false: V = 1, no weights) and K6.
+template <typename T, int C, int G, bool kViews>
+__global__ void __launch_bounds__(kThreads, 4) warp_corr_tile_kernel(
+    const T* __restrict__ src, const T* __restrict__ ref, const float* __restrict__ mats,
+    const float* __restrict__ depth, const float* __restrict__ vw, float* __restrict__ out,
+    int V, int D, int H, int W, int Hs, int Ws) {
+  using Layout = TileLayout<T, C, G>;
+  constexpr int N = Layout::N, CG = Layout::CG, KC = Layout::KC, L = Layout::L;
+  constexpr int GL = Layout::GL, TX = Layout::TX;
+  // + 1: the L lanes of a slot write L rows at once; the padding spreads
+  // them over the banks
+  __shared__ float staged[G][kHypChunk][TX + 1];
+  __shared__ float dep_s[kHypChunk][TX];
+  extern __shared__ float views_s[];  // projections [V][12], then K6's weights [V][TX]
+  float* mats_s = views_s;
+  float* vw_s = views_s + V * 12;
+
+  const long long hw = (long long)H * W;
+  const int b = blockIdx.z;
+  const int d0 = blockIdx.y * kHypChunk;
+  const int nd = min(kHypChunk, D - d0);
+  const long long pix0 = (long long)blockIdx.x * TX;
+  const int slot = threadIdx.x / L;
+  const int part = threadIdx.x % L;
+
+  // The block's inputs other than the maps, read once: the chunk's depths,
+  // each view's projection and (K6) each pixel's view weights.
+  for (int i = threadIdx.x; i < kHypChunk * TX; i += kThreads) {
+    const int j = i / TX;
+    const long long p = pix0 + i % TX;
+    dep_s[j][i % TX] = j < nd && p < hw ? depth[((long long)b * D + d0 + j) * hw + p] : 0.0f;
+  }
+  for (int i = threadIdx.x; i < V * 12; i += kThreads) mats_s[i] = mats[(long long)b * V * 12 + i];
+  if constexpr (kViews) {
+    for (int i = threadIdx.x; i < V * TX; i += kThreads) {
+      const long long p = pix0 + i % TX;
+      vw_s[i] = p < hw ? vw[((long long)b * V + i / TX) * hw + p] : 0.0f;
+    }
+  }
+  __syncthreads();
+
+  // Lanes of a slot past the end of H x W compute on the last pixel (the
+  // shuffles below need every lane) and their results are not stored.
+  const long long pix = min(pix0 + slot, hw - 1);
+  const float x = (float)(int)(pix % W), y = (float)(int)(pix / W);
+  float rv[KC];
+  const T* r = ref + ((long long)b * hw + pix) * C + part * KC;
+#pragma unroll
+  for (int k = 0; k < KC; k += N) VecLoad<T>::load(r + k, rv + k);
+  const T* base0 = src + (long long)b * V * Hs * Ws * C + part * KC;
+  const long long view_stride = (long long)Hs * Ws * C;
+  float m1[12];  // K1's one projection, in registers
+  if constexpr (!kViews) {
+#pragma unroll
+    for (int i = 0; i < 12; ++i) m1[i] = mats_s[i];
+  }
+
+  // The slot's samples s = j * V + v (hypothesis j of the chunk, view v),
+  // L at a time: lane `part` warps sample s0 + part, and the slot's L lanes
+  // then reduce the L samples one after another with its cell, shuffled.
+  const int S = nd * V;
+  float res[GL];
+#pragma unroll
+  for (int k = 0; k < GL; ++k) res[k] = 0.0f;
+  int j = 0, v = 0;
+  for (int s0 = 0; s0 < S; s0 += L) {
+    int cell = 0, valid = 0;
+    float fx = 0.0f, fy = 0.0f;
+    const int s = s0 + part;
+    if (s < S) {
+      const int sj = s / V;
+      const float* m = kViews ? mats_s + (s - sj * V) * 12 : m1;
+      const Taps t = warp_taps(m, x, y, dep_s[sj][slot], Hs, Ws);
+      cell = t.y0 * Ws + t.x0;
+      fx = t.fx;
+      fy = t.fy;
+      valid = t.valid[0] | t.valid[1] << 1 | t.valid[2] << 2 | t.valid[3] << 3;
+    }
+#pragma unroll
+    for (int i = 0; i < L; ++i) {
+      if (s0 + i >= S) break;
+      Taps taps;
+      taps.fx = __shfl_sync(0xffffffffu, fx, i, L);
+      taps.fy = __shfl_sync(0xffffffffu, fy, i, L);
+      const int bits = __shfl_sync(0xffffffffu, valid, i, L);
+#pragma unroll
+      for (int t = 0; t < 4; ++t) taps.valid[t] = (bits >> t) & 1;
+      set_weights(taps);  // the warping lane's weights, to the bit
+      const Corners<T, C> corner(base0 + v * view_stride, __shfl_sync(0xffffffffu, cell, i, L),
+                                 Ws);
+      uint4 raw[KC / N][4];  // every load of the sample before its arithmetic
+#pragma unroll
+      for (int k = 0; k < KC / N; ++k) load_taps<T, C>(corner, k * N, taps, raw[k]);
+      float acc[GL];
+#pragma unroll
+      for (int k = 0; k < GL; ++k) acc[k] = 0.0f;
+#pragma unroll
+      for (int k = 0; k < KC / N; ++k)
+        correlate_taps<T, CG>(raw[k], taps, rv + k * N, acc + k * N / CG);
+#pragma unroll
+      for (int k = 0; k < GL; ++k) {
+        if constexpr (kViews) {
+          const float weight = vw_s[v * TX + slot];
+          res[k] = __fadd_rn(res[k], __fmul_rn(__fmul_rn(acc[k], 1.0f / CG), weight));
+        } else {
+          res[k] = acc[k] * (1.0f / CG);
+        }
+      }
+      if (++v == V) {  // hypothesis j is summed over every view
+#pragma unroll
+        for (int k = 0; k < GL; ++k) {
+          staged[part * GL + k][j][slot] = res[k];
+          res[k] = 0.0f;
+        }
+        v = 0;
+        ++j;
+      }
+    }
+  }
+
+  // Stores: each (g, j) row of the tile's consecutive pixels, 4 at a time
+  // where the rows are 16-byte aligned and the tile lies inside H x W.
+  __syncthreads();
+  float* o = out + (long long)b * G * D * hw + (long long)d0 * hw + pix0;
+  if (hw % 4 == 0 && pix0 + TX <= hw) {
+    for (int i = threadIdx.x; i < G * kHypChunk * (TX / 4); i += kThreads) {
+      const int px = 4 * (i % (TX / 4)), row = i / (TX / 4);
+      const int jj = row % kHypChunk, g = row / kHypChunk;
+      if (jj < nd) {
+        const float* st = &staged[g][jj][px];
+        *reinterpret_cast<float4*>(o + ((long long)g * D + jj) * hw + px) =
+            make_float4(st[0], st[1], st[2], st[3]);
+      }
+    }
+  } else {
+    for (int i = threadIdx.x; i < G * kHypChunk * TX; i += kThreads) {
+      const int px = i % TX, row = i / TX;
+      const int jj = row % kHypChunk, g = row / kHypChunk;
+      if (jj < nd && pix0 + px < hw) o[((long long)g * D + jj) * hw + px] = staged[g][jj][px];
+    }
+  }
 }
 
 template <typename T, int C, int G, Coords kMode>
-cudaError_t launch(const void* src, const void* ref, const void* mat12, const void* depth,
-                   const void* gx, const void* gy, const void* vw, void* out, int B, int V,
-                   int D, int H, int W, int Hs, int Ws, cudaStream_t stream) {
+cudaError_t launch_per_sample(const void* src, const void* ref, const void* gx, const void* gy,
+                              void* out, int B, int D, int H, int W, int Hs, int Ws,
+                              cudaStream_t stream) {
   const long long total = (long long)B * D * H * W;
   if (total == 0) return cudaSuccess;
   group_corr_kernel<T, C, G, kMode><<<num_blocks(total), kThreads, 0, stream>>>(
-      static_cast<const T*>(src), static_cast<const T*>(ref),
-      static_cast<const float*>(mat12), static_cast<const float*>(depth),
-      static_cast<const float*>(gx), static_cast<const float*>(gy),
-      static_cast<const float*>(vw), static_cast<float*>(out), B, V, D, H, W, Hs, Ws);
+      static_cast<const T*>(src), static_cast<const T*>(ref), static_cast<const float*>(gx),
+      static_cast<const float*>(gy), static_cast<float*>(out), B, D, H, W, Hs, Ws);
   return cudaGetLastError();
 }
 
-template <Coords kMode>
-cudaError_t dispatch(const void* src, const void* ref, const void* mat12, const void* depth,
-                     const void* gx, const void* gy, const void* vw, void* out, int B, int V,
-                     int D, int H, int W, int Hs, int Ws, int C, int G, int bf16,
-                     cudaStream_t stream) {
-#define PMN_CASE(CC, GG)                                                                    \
-  if (C == CC && G == GG) {                                                                 \
-    return bf16 ? launch<__nv_bfloat16, CC, GG, kMode>(src, ref, mat12, depth, gx, gy, vw,   \
-                                                       out, B, V, D, H, W, Hs, Ws, stream)  \
-                : launch<float, CC, GG, kMode>(src, ref, mat12, depth, gx, gy, vw, out, B,   \
-                                               V, D, H, W, Hs, Ws, stream);                 \
+template <typename T, int C, int G, bool kViews>
+cudaError_t launch_tiled(const void* src, const void* ref, const void* mats, const void* depth,
+                         const void* vw, void* out, int B, int V, int D, int H, int W, int Hs,
+                         int Ws, cudaStream_t stream) {
+  constexpr int TX = TileLayout<T, C, G>::TX;
+  const long long hw = (long long)H * W;
+  if (B == 0 || D == 0 || hw == 0) return cudaSuccess;
+  const dim3 grid((unsigned int)((hw + TX - 1) / TX), (D + kHypChunk - 1) / kHypChunk, B);
+  const size_t views_bytes = sizeof(float) * V * (kViews ? 12 + TX : 12);
+  warp_corr_tile_kernel<T, C, G, kViews><<<grid, kThreads, views_bytes, stream>>>(
+      static_cast<const T*>(src), static_cast<const T*>(ref), static_cast<const float*>(mats),
+      static_cast<const float*>(depth), static_cast<const float*>(vw), static_cast<float*>(out),
+      V, D, H, W, Hs, Ws);
+  return cudaGetLastError();
+}
+
+// A (payload, C, G) instantiation, passed to the launch lambdas of `dispatch`.
+template <typename T_, int C_, int G_>
+struct Inst {
+  using T = T_;
+  static constexpr int C = C_, G = G_;
+};
+
+// Calls launch(Inst<T, C, G>{}) for the instantiated (C, G) pairs (stages 1,
+// 2, 3) and payloads; anything else is cudaErrorInvalidValue.
+template <typename F>
+cudaError_t dispatch(int C, int G, int bf16, F launch) {
+#define PMN_CASE(CC, GG)                                                          \
+  if (C == CC && G == GG) {                                                       \
+    return bf16 ? launch(Inst<__nv_bfloat16, CC, GG>{}) : launch(Inst<float, CC, GG>{}); \
   }
   PMN_CASE(16, 4)
   PMN_CASE(32, 8)
@@ -147,18 +333,23 @@ cudaError_t dispatch(const void* src, const void* ref, const void* mat12, const 
 extern "C" int pmn_warp_group_corr(const void* src, const void* ref, const void* mat12,
                                    const void* depth, void* out, int B, int D, int H, int W,
                                    int Hs, int Ws, int C, int G, int bf16, void* stream) {
-  return (int)pmn::dispatch<pmn::Coords::kWarp>(src, ref, mat12, depth, nullptr, nullptr,
-                                                nullptr, out, B, 1, D, H, W, Hs, Ws, C, G, bf16,
-                                                static_cast<cudaStream_t>(stream));
+  return (int)pmn::dispatch(C, G, bf16, [&](auto inst) {
+    using I = decltype(inst);
+    return pmn::launch_tiled<typename I::T, I::C, I::G, false>(
+        src, ref, mat12, depth, nullptr, out, B, 1, D, H, W, Hs, Ws,
+        static_cast<cudaStream_t>(stream));
+  });
 }
 
 // ref [B,H,W,C] (f32 or bf16), gx/gy [B,K,H,W] f32 -> out [B,G,K,H,W] f32.
 extern "C" int pmn_neighbor_group_corr(const void* ref, const void* gx, const void* gy,
                                        void* out, int B, int K, int H, int W, int C, int G,
                                        int bf16, void* stream) {
-  return (int)pmn::dispatch<pmn::Coords::kBorder>(ref, ref, nullptr, nullptr, gx, gy, nullptr,
-                                                  out, B, 1, K, H, W, H, W, C, G, bf16,
-                                                  static_cast<cudaStream_t>(stream));
+  return (int)pmn::dispatch(C, G, bf16, [&](auto inst) {
+    using I = decltype(inst);
+    return pmn::launch_per_sample<typename I::T, I::C, I::G, pmn::Coords::kBorder>(
+        ref, ref, gx, gy, out, B, K, H, W, H, W, static_cast<cudaStream_t>(stream));
+  });
 }
 
 // src [B,Hs,Ws,C], ref [B,H,W,C] (f32 or bf16), ix/iy [B,D,H,W] f32 source
@@ -167,9 +358,11 @@ extern "C" int pmn_neighbor_group_corr(const void* ref, const void* gx, const vo
 extern "C" int pmn_coord_group_corr(const void* src, const void* ref, const void* ix,
                                     const void* iy, void* out, int B, int D, int H, int W,
                                     int Hs, int Ws, int C, int G, int bf16, void* stream) {
-  return (int)pmn::dispatch<pmn::Coords::kPixels>(src, ref, nullptr, nullptr, ix, iy, nullptr,
-                                                  out, B, 1, D, H, W, Hs, Ws, C, G, bf16,
-                                                  static_cast<cudaStream_t>(stream));
+  return (int)pmn::dispatch(C, G, bf16, [&](auto inst) {
+    using I = decltype(inst);
+    return pmn::launch_per_sample<typename I::T, I::C, I::G, pmn::Coords::kPixels>(
+        src, ref, ix, iy, out, B, D, H, W, Hs, Ws, static_cast<cudaStream_t>(stream));
+  });
 }
 
 // src [B,V,Hs,Ws,C], ref [B,H,W,C] (f32 or bf16), mats [B,V,12] f32,
@@ -178,9 +371,12 @@ extern "C" int pmn_warp_group_corr_views(const void* src, const void* ref, const
                                          const void* depth, const void* vw, void* out, int B,
                                          int V, int D, int H, int W, int Hs, int Ws, int C, int G,
                                          int bf16, void* stream) {
-  return (int)pmn::dispatch<pmn::Coords::kViews>(src, ref, mats, depth, nullptr, nullptr, vw,
-                                                 out, B, V, D, H, W, Hs, Ws, C, G, bf16,
-                                                 static_cast<cudaStream_t>(stream));
+  return (int)pmn::dispatch(C, G, bf16, [&](auto inst) {
+    using I = decltype(inst);
+    return pmn::launch_tiled<typename I::T, I::C, I::G, true>(
+        src, ref, mats, depth, vw, out, B, V, D, H, W, Hs, Ws,
+        static_cast<cudaStream_t>(stream));
+  });
 }
 
 extern "C" const char* pmn_error_string(int code) {

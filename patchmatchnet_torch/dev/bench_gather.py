@@ -25,12 +25,12 @@ the calls take ROTATION distinct index arrays in turn, drawn from a seeded
 generator on the device. The kernel, the plain version and `torch.gather`
 are timed in turns (half their samples each way round), so that none
 always runs first. On the card each case also prints the device time of
-the three, from a torch.profiler trace of BATCH calls: the time the device
-was busy, without the time it waits for the host. On the CPU, where the
-tests run the sections at small shapes, the wrappers run their plain
-versions and the host clock times single calls. The JAX tool's scan
-timing, 10 ms dispatch floor and scalar chain are not carried over: they
-served the TPU's remote dispatch.
+the three, from a torch.profiler trace of 10 calls
+(`utils.trace.device_ms`): the time the device was busy, without the time
+it waits for the host. On the CPU, where the tests run the sections at
+small shapes, the wrappers run their plain versions and the host clock
+times single calls. The JAX tool's scan timing, 10 ms dispatch floor and
+scalar chain are not carried over: they served the TPU's remote dispatch.
 
 Each `bench_*` function returns one dict per case: "case", "kernel", the
 median "ms" of the kernel, "plain_ms", "library_ms" (`torch.gather`),
@@ -42,12 +42,9 @@ median "ms" of the kernel, "plain_ms", "library_ms" (`torch.gather`),
 
 from __future__ import annotations
 
-import collections
 import itertools
-import os
 import statistics
 import sys
-import tempfile
 import time
 
 import torch
@@ -60,13 +57,13 @@ from patchmatchnet_torch.ops import (
     gather_sublanes,
     gather_sublanes_reference,
 )
+from patchmatchnet_torch.utils.trace import CALLS, device_ms, fmt_ms
 
 ROTATION = 4  # distinct index arrays per case
 REPS = 20  # timed samples of each implementation per case
 SEED = 0  # of the tables and index arrays
 BATCH = 10  # calls per sample on the card
 WARMUP = 3
-TRACE_TRIES = 3  # profiler traces per device time
 JITTER = 300  # rows: the xla section's index jitter
 # (name, table rows, channels, points) of K1's three stage shapes
 XLA_CASES = (
@@ -132,26 +129,9 @@ def _time_in_turns(impls, device: torch.device):
 
 def _device_ms(fn, args):
     """Device time of one call of fn(a) on the card, a taken from `args` in
-    turn: the time the device was busy in a torch.profiler trace of BATCH
-    calls, over BATCH. Unlike a CUDA-event time it leaves out the time the
-    card waits for the host. The profiler at times drops device events, so
-    a trace counts only if every kernel, copy and set in it occurs a whole
-    multiple of BATCH times; after TRACE_TRIES traces without one, None."""
-    from patchmatchnet_torch.utils.trace import busy_union_us, trace_device_events
-
-    for _ in range(TRACE_TRIES):
-        turn = itertools.cycle(args)
-        with tempfile.TemporaryDirectory() as tmp:
-            events = trace_device_events(lambda: fn(next(turn)), BATCH,
-                                         os.path.join(tmp, "trace.json"))
-        counts = collections.Counter(name for _, name, _, _ in events)
-        if counts and all(n % BATCH == 0 for n in counts.values()):
-            return busy_union_us((s, s + d) for _, _, s, d in events) / BATCH / 1e3
-    return None
-
-
-def fmt_ms(ms) -> str:
-    return "not measured" if ms is None else f"{ms:.4f} ms"
+    turn (`utils.trace.device_ms`)."""
+    turn = itertools.cycle(args)
+    return device_ms(lambda: fn(next(turn)))
 
 
 def _header(title: str, device: torch.device) -> None:
@@ -197,7 +177,7 @@ def _run_case(label, kernel_name, kernel, plain, library, win, idxs, device, uni
               "bytes": work_bytes, "max_abs_err": max_abs_err}
     if device.type == "cuda":
         dev = {name: _device_ms(fn, args) for name, (fn, args) in impls.items()}
-        print(f"  device time (profiler trace of {BATCH} calls): {kernel_name} "
+        print(f"  device time (profiler trace of {CALLS} calls): {kernel_name} "
               f"{fmt_ms(dev['kernel'])}, plain {fmt_ms(dev['plain'])}, "
               f"torch.gather {fmt_ms(dev['library'])}", flush=True)
         result.update(device_ms=dev["kernel"], plain_device_ms=dev["plain"],

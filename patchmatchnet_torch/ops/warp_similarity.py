@@ -267,10 +267,10 @@ def warp_group_corr_views(
 
     Replaces `windowed_similarity.py` `_kernel_proj_views` (API
     `windowed_group_similarity_proj_views`). The CUDA kernel is
-    `csrc/group_corr.cu` (`pmn_warp_group_corr_views`, K1's kernel with the
-    views looped inside each thread); it rounds like the per-view route (K1
-    per view, `sim * vw`, then the sum in view order), so the two agree to
-    the bit.
+    `csrc/group_corr.cu` (`pmn_warp_group_corr_views`, K1's tiled kernel
+    with the views looped inside each lane); it rounds like the per-view
+    route (K1 per view, `sim * vw`, then the sum in view order), so the two
+    agree to the bit.
 
     Args:
         src: [B, V, Hs, Ws, C] stacked source-view features (bf16 or f32).

@@ -1,30 +1,44 @@
 """Device traces of repeated calls: the kernel, memcpy and memset events of a
-`torch.profiler` trace, the time the device was busy, and a coarse kind for
-each kernel name. `chip_smoke.py` and `tools/dev/profile_torch_main.py`
+`torch.profiler` trace, the time the device was busy, the device time of
+one call and its printed form, and a coarse kind for each kernel name.
+`chip_smoke.py`, `tools/dev/profile_torch_main.py` and `dev/bench_gather.py`
 read their traces through these helpers."""
 
 from __future__ import annotations
 
+import collections
 import json
-from typing import Callable, Iterable, List, Tuple
+import os
+import tempfile
+import warnings
+from typing import Callable, Iterable, List, Optional, Tuple
 
 # (category, kernel or copy name, start us, duration us)
 DeviceEvent = Tuple[str, str, float, float]
+CALLS = 10  # calls in each trace of `device_ms`
+TRIES = 5  # traces `device_ms` takes before it gives up
 
 
 def trace_device_events(fn: Callable[[], object], calls: int, path: str) -> List[DeviceEvent]:
     """Profile `calls` back-to-back calls of fn() on the CPU and CUDA
     activities, write the chrome trace to `path` and return its device
-    events."""
+    events. One more call runs first, as the profiler's warm-up step: the
+    first device events after the tracer starts are the ones it loses, and
+    the warm-up step's events are not kept."""
     import torch
-    from torch.profiler import ProfilerActivity, profile
+    from torch.profiler import ProfilerActivity, profile, schedule
 
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
+                 schedule=schedule(wait=0, warmup=1, active=1, repeat=1),
+                 on_trace_ready=lambda p: p.export_chrome_trace(path)) as prof:
+        fn()
+        torch.cuda.synchronize()
+        prof.step()
         for _ in range(calls):
             fn()
         torch.cuda.synchronize()
-    prof.export_chrome_trace(path)
+        prof.step()
     with open(path) as f:
         events = json.load(f).get("traceEvents", [])
     return [(e["cat"], e["name"], float(e["ts"]), float(e["dur"])) for e in events
@@ -42,6 +56,30 @@ def busy_union_us(intervals: Iterable[Tuple[float, float]]) -> float:
         else:
             cur_e = max(cur_e, e)
     return total + (cur_e - cur_s if cur_e is not None else 0.0)
+
+
+def device_ms(fn: Callable[[], object]) -> Optional[float]:
+    """Device time of one call of fn() on the card: the time the device was
+    busy in a torch.profiler trace of CALLS calls, over CALLS. Unlike a
+    CUDA-event time it leaves out the time the card waits for the host. The
+    profiler at times drops device events, so a trace counts only if every
+    kernel, copy and set in it occurs a whole multiple of CALLS times;
+    after TRIES traces without one, None."""
+    for _ in range(TRIES):
+        with tempfile.TemporaryDirectory() as tmp:
+            events = trace_device_events(fn, CALLS, os.path.join(tmp, "trace.json"))
+        counts = collections.Counter(name for _, name, _, _ in events)
+        if counts and all(n % CALLS == 0 for n in counts.values()):
+            return busy_union_us((s, s + d) for _, _, s, d in events) / CALLS / 1e3
+        odd = {name[:80]: n for name, n in counts.items() if n % CALLS}
+        warnings.warn(f"device_ms: trace of {CALLS} calls dropped ({len(events)} device "
+                      f"events; counts not a multiple of {CALLS}: {odd})")
+    return None
+
+
+def fmt_ms(ms: Optional[float]) -> str:
+    """A time in ms as printed beside `device_ms`'s: None is "not measured"."""
+    return "not measured" if ms is None else f"{ms:.4f} ms"
 
 
 def kernel_kind(name: str) -> str:

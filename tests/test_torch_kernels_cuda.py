@@ -25,7 +25,29 @@ def device():
     return torch.device("cuda", 0)
 
 
-def _case(device, c, d, h, w, dtype, seed=0):
+def _hypotheses(gen, device, b, d, h, w, where):
+    """[b, d, h, w] depths: "mixed" in front of the cameras with the first
+    hypothesis of the first two rows behind them, "behind" all behind
+    (pz <= 1e-3), "off" all so near that every warp leaves the image."""
+    depth = torch.rand((b, d, h, w), generator=gen, device=device)
+    if where == "behind":
+        return -1.0 - depth
+    if where == "off":
+        return 0.01 + 0.01 * depth
+    depth = 4.0 + 4.0 * depth
+    depth[:, 0, :2] = -1.0  # behind the source camera
+    return depth
+
+
+# Shapes and hypotheses of the warp kernels' cases (b, d, h, w, where): the
+# tiled kernel's ragged edges (H x W not a multiple of its pixel tile, W
+# below it, H = 1), D = 1 and D not a multiple of its hypothesis chunk,
+# B = 2, and samples all behind the cameras or all off the image.
+WARP_CASES = [(1, 6, 20, 36, "mixed"), (2, 11, 13, 17, "mixed"), (1, 1, 9, 40, "mixed"),
+              (1, 5, 1, 7, "mixed"), (1, 6, 20, 36, "behind"), (1, 6, 20, 36, "off")]
+
+
+def _case(device, c, d, h, w, dtype, seed=0, b=1, where="mixed"):
     gen = torch.Generator(device=device).manual_seed(seed)
     f = 1.1 * max(h, w)
     k = torch.tensor([[f, 0, w / 2.0], [0, f, h / 2.0], [0, 0, 1]])
@@ -34,30 +56,38 @@ def _case(device, c, d, h, w, dtype, seed=0):
         p = torch.eye(4)
         p[:3, :4] = k @ torch.tensor([[1.0, 0, 0, tx], [0, 1, 0, 0], [0, 0, 1, 0]])
         projs.append(p)
-    mat12 = warp_proj_coeffs(projs[1][None], projs[0][None]).to(device).contiguous()
-    src = torch.randn((1, h, w, c), generator=gen, device=device).to(dtype)
-    ref = torch.randn((1, h, w, c), generator=gen, device=device).to(dtype)
-    depth = 4.0 + 4.0 * torch.rand((1, d, h, w), generator=gen, device=device)
-    depth[:, 0, :2] = -1.0  # behind the source camera
-    offset = torch.randn((1, h, w, 18), generator=gen, device=device) * 3.0
+    mat12 = warp_proj_coeffs(projs[1][None], projs[0][None]).to(device)
+    mat12 = mat12.expand(b, 12).contiguous()
+    # the plain versions' align_corners=True normalization needs a source of
+    # at least 2 x 2 pixels
+    src = torch.randn((b, max(h, 2), max(w, 2), c), generator=gen, device=device).to(dtype)
+    ref = torch.randn((b, h, w, c), generator=gen, device=device).to(dtype)
+    depth = _hypotheses(gen, device, b, d, h, w, where)
+    offset = torch.randn((b, h, w, 18), generator=gen, device=device) * 3.0
     grid = build_offset_grid(offset, evaluation_offsets(2), h, w)
     return src, ref, mat12, depth, grid, gen
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("c,g", [(16, 4), (32, 8), (64, 8)])
-def test_warp_and_neighbor_kernels_match_plain(device, dtype, c, g):
-    src, ref, mat12, depth, grid, _ = _case(device, c, 6, 20, 36, dtype)
+@pytest.mark.parametrize("b,d,h,w,where", WARP_CASES)
+def test_warp_and_neighbor_kernels_match_plain(device, dtype, c, g, b, d, h, w, where):
+    """K1 at each of WARP_CASES against its plain version, and in the first
+    case also K3 (its case does not depend on K1's shapes); one launch
+    counted each."""
+    src, ref, mat12, depth, grid, _ = _case(device, c, d, h, w, dtype, b=b, where=where)
+    with_k3 = (b, d, h, w, where) == WARP_CASES[0]
     before = cuda_build.launch_counts()
     got = ops.warp_group_corr(src, mat12, depth, ref, g)
     want = ops.warp_group_corr_reference(src, mat12, depth, ref, g)
     torch.testing.assert_close(got, want, rtol=0, atol=2e-4)
-    got = ops.neighbor_group_corr(ref, grid, g)
-    want = ops.neighbor_group_corr_reference(ref, grid, g)
-    torch.testing.assert_close(got, want, rtol=0, atol=2e-5)
+    if with_k3:
+        got = ops.neighbor_group_corr(ref, grid, g)
+        want = ops.neighbor_group_corr_reference(ref, grid, g)
+        torch.testing.assert_close(got, want, rtol=0, atol=2e-5)
     after = cuda_build.launch_counts()
-    for name in ("warp_group_corr", "neighbor_group_corr"):
-        assert after.get(name, 0) == before.get(name, 0) + 1
+    assert after.get("warp_group_corr", 0) == before.get("warp_group_corr", 0) + 1
+    assert after.get("neighbor_group_corr", 0) == before.get("neighbor_group_corr", 0) + with_k3
 
 
 def _close_to_max(got, want, bound):
@@ -174,10 +204,10 @@ def test_model_f32_on_card_matches_cpu(device):
     assert diff.mean() < 2e-4 and diff.median() < 1e-5, (diff.mean(), diff.median())
 
 
-def _views_case(device, b, c, d, h, w, dtype, views=4, seed=3):
+def _views_case(device, b, c, d, h, w, dtype, views=4, seed=3, where="mixed"):
     """A rig of `views` sources at x baselines +-0.35, +-0.7 around the
-    reference, stacked [B, V, h, w, C] features, depth with samples behind
-    the cameras, and per-pixel view weights."""
+    reference, stacked [B, V, h, w, C] features, depth hypotheses as
+    `_hypotheses` makes them, and per-pixel view weights."""
     gen = torch.Generator(device=device).manual_seed(seed)
     f = 1.1 * max(h, w)
     k = torch.tensor([[f, 0, w / 2.0], [0, f, h / 2.0], [0, 0, 1]])
@@ -188,23 +218,29 @@ def _views_case(device, b, c, d, h, w, dtype, views=4, seed=3):
         projs.append(p)
     projs = torch.stack(projs)[None].expand(b, -1, -1, -1)
     mats = warp_proj_coeffs(projs[:, 1:], projs[:, :1]).to(device).contiguous()
-    src = torch.randn((b, views, h, w, c), generator=gen, device=device).to(dtype)
+    src = torch.randn((b, views, max(h, 2), max(w, 2), c), generator=gen,
+                      device=device).to(dtype)
     ref = torch.randn((b, h, w, c), generator=gen, device=device).to(dtype)
-    depth = 4.0 + 4.0 * torch.rand((b, d, h, w), generator=gen, device=device)
-    depth[:, 0, :2] = -1.0  # behind the source cameras
+    depth = _hypotheses(gen, device, b, d, h, w, where)
     vw = torch.rand((b, views, h, w), generator=gen, device=device)
     return src, mats, depth, ref, vw
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("c,g", [(16, 4), (32, 8), (64, 8)])
-@pytest.mark.parametrize("b,d,h,w", [(1, 6, 20, 36), (2, 5, 13, 17)])
-def test_views_kernel_matches_plain_and_per_view_route(device, dtype, c, g, b, d, h, w):
-    """K6 vs its plain version (twice K1's bound: a sum of 4 views with
-    weights below 1) and, to the bit, vs the per-view route it replaces: K1
-    per view, times the weights, summed in view order as `Evaluation` does;
-    one launch counted."""
-    src, mats, depth, ref, vw = _views_case(device, b, c, d, h, w, dtype)
+@pytest.mark.parametrize("b,d,h,w,views,where", [
+    (1, 6, 20, 36, 4, "mixed"), (2, 5, 13, 17, 4, "mixed"), (1, 1, 1, 7, 1, "mixed"),
+    (2, 11, 9, 40, 1, "mixed"), (1, 6, 20, 36, 4, "behind"), (1, 6, 20, 36, 4, "off")])
+def test_views_kernel_matches_plain_and_per_view_route(device, dtype, c, g, b, d, h, w, views,
+                                                       where):
+    """K6 vs its plain version (twice K1's bound: a sum of up to 4 views
+    with weights below 1) and, to the bit, vs the per-view route it
+    replaces: K1 per view, times the weights, summed in view order as
+    `Evaluation` does; one launch counted. The cases cover the tiled
+    kernel's ragged pixel tiles and hypothesis chunks, H = 1, D = 1, B = 2,
+    V = 1 and 4, and samples all behind the cameras or all off the image."""
+    src, mats, depth, ref, vw = _views_case(device, b, c, d, h, w, dtype, views=views,
+                                            where=where)
     before = cuda_build.launch_counts()
     got = ops.warp_group_corr_views(src, mats, depth, ref, vw, g)
     after = cuda_build.launch_counts()
@@ -220,14 +256,16 @@ def test_views_kernel_matches_plain_and_per_view_route(device, dtype, c, g, b, d
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("c,g", [(16, 4), (32, 8), (64, 8)])
-def test_coord_kernel_matches_plain_and_warp_kernel(device, dtype, c, g):
-    """K7 on the warp coordinates equals K1 to the bit; on jittered
-    coordinates (off the image too) it is within K1's bound of its plain
-    version; one launch counted per call."""
-    src, ref, mat12, depth, _, gen = _case(device, c, 6, 20, 36, dtype)
+@pytest.mark.parametrize("b,d,h,w,where", WARP_CASES)
+def test_coord_kernel_matches_plain_and_warp_kernel(device, dtype, c, g, b, d, h, w, where):
+    """K7 (thread per sample) on the warp coordinates equals K1 (tiled) to
+    the bit at each of WARP_CASES; on jittered coordinates (off the image
+    too) it is within K1's bound of its plain version; one launch counted
+    per call."""
+    src, ref, mat12, depth, _, gen = _case(device, c, d, h, w, dtype, b=b, where=where)
     from patchmatchnet_torch.ops.warp import warp_coords
 
-    ix, iy = warp_coords(mat12, depth, 20, 36)
+    ix, iy = warp_coords(mat12, depth, src.shape[1], src.shape[2])
     before = cuda_build.launch_counts()
     got = ops.coord_group_corr(src, ix, iy, ref, g)
     assert cuda_build.launch_counts().get("coord_group_corr", 0) == \
