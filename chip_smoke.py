@@ -16,7 +16,8 @@ result line:
    equals the per-view route it replaces (4 K1 launches and the weighted
    sum) and K7 on the warp coordinates equals K1, both to the bit; K7 on
    those coordinates (the thread-per-sample design computing K1's values)
-   is timed beside K1.
+   is timed beside K1. One line per kernel of the main path gives its
+   device ms per stage shape and per forward.
 4. f32 golden parity: the f32 model (kernels on, TF32 off) against the
    captured reference outputs in tests/golden/.
 5. main path: a 1152x864, 5-view synthetic scene through MVSDataset ->
@@ -309,6 +310,8 @@ def kernel_parity(device):
     # K1 against K7 on K1's warp coordinates (K7 keeps the thread-per-sample
     # design), device ms per forward of the main path
     baseline = {"k1": 0.0, "k7": 0.0}
+    # device ms per call of each timed (bf16) case: kernel -> [(label, ms, launches)]
+    per_stage = {name: [] for name in INFERENCE_KERNELS}
 
     def record(name, label, args, got, want, launches, timed, fn, plain_fn, interval):
         err = (got - want).abs()
@@ -321,6 +324,7 @@ def kernel_parity(device):
         if timed and launches:
             ms, plain_ms, dev_ms = time_ms(fn), time_ms(plain_fn), device_ms(fn)
             add_time(s, name, args, got, launches, ms, plain_ms, dev_ms)
+            per_stage[name].append((label.split(" (")[0], dev_ms, launches))
             work_ms, by = bound(*kernel_work(name, args, got))
             line += (f" | kernel {ms:.4f} ms device {fmt_ms(dev_ms)} plain {plain_ms:.4f} ms "
                      f"bound {work_ms:.4f} ms ({by}) (x{launches}/pass)")
@@ -414,6 +418,11 @@ def kernel_parity(device):
           f"ms; max |K6 - per-view route| {route['max_abs_diff']:.3e} (bf16 and f32); max "
           f"|K7 - K1| on the warp coordinates {k7_vs_k1[0]:.3e}; K1 per forward device "
           f"{fmt_ms(baseline['k1'])}, K7 on its coordinates {fmt_ms(baseline['k7'])}", flush=True)
+    for name in ("warp_group_corr", "warp_group_corr_views", "eval_grid_score",
+                 "neighbor_group_corr"):
+        print(f"{name} device ms per stage: " + "; ".join(
+            f"{label} {fmt_ms(dev)} x{n}" for label, dev, n in per_stage[name])
+            + f"; per forward {fmt_ms(summary[name]['device_ms'])}", flush=True)
     if route["max_abs_diff"] != 0.0:
         fail(f"K6 differs from the per-view route by {route['max_abs_diff']:.3e}")
     if k7_vs_k1[0] != 0.0:

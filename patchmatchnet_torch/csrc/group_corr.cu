@@ -27,15 +27,19 @@
 //   `correlate_taps` (common.cuh), so K7 on K1's warp coordinates equals K1
 //   to the bit.
 //
-// What bounds K1 and K6 on an H100: not HBM. The source maps (at most 8 MB
-// a view, 32 MB for K6's four at stage 1) stay in the 50 MB L2, and a
-// launch needs 28-84 MB of device-memory traffic. Each sample reads 4
-// corner rows of C channels (stage 3 bf16: 4 x 128 B) wherever its warp
-// lands, so the limits are the L1 requests those reads make and the
-// instructions issued per sample: the warp (two IEEE divisions), and per
-// channel a widening and 4 + 1 multiply-adds, the same in every design.
+// What bounds K1, K3 and K6 on an H100: not HBM. The source maps (at most
+// 8 MB a view, 32 MB for K6's four at stage 1; K3's is the reference map)
+// stay in the 50 MB L2, and a launch needs 28-84 MB of device-memory
+// traffic. Each sample reads 4 corner rows of C channels (stage 3 bf16: 4
+// x 128 B) wherever its cell lies, so the limits are the L1 requests those
+// reads make and the instructions issued per sample: the cell (K1, K6: the
+// warp's two IEEE divisions), and per channel a widening and 4 + 1
+// multiply-adds, the same in every design.
 //
-// K1 and K6: the tiled kernel, `warp_corr_tile_kernel`.
+// K1, K3 and K6: the tiled kernel, `group_corr_tile_kernel`, one body for
+// three sources of a sample's cell (`Samples`): K1 warps depth hypotheses
+// through one projection, K6 through V, each pixel's view weights applied,
+// and K3 takes the eval grid's neighbours of the reference itself.
 // - Lanes split across channels. A lane owns KC consecutive channels, whole
 //   16-byte vectors and whole groups: one group of 8 at stage 3 (bf16: one
 //   vector; f32: two), two groups of 4 in one bf16 vector at stages 2 and
@@ -48,50 +52,49 @@
 //   arithmetic of the thread-per-sample kernel, to the bit.
 // - Tile. A block of 256 threads owns TX = 256 / L consecutive reference
 //   pixels (row-major over H x W, so a tile may cross a row) and a chunk
-//   of kHypChunk hypotheses. It reads the chunk's depths, each view's
-//   projection and (K6) each pixel's view weights once, into shared
-//   memory; each lane reads its reference channels once, into registers,
-//   for every hypothesis and view of the chunk.
-// - One warp per sample. A pixel's samples s = j * V + v (hypothesis j,
-//   view v) go L at a time: lane p computes the cell of sample s0 + p with
-//   the unchanged `warp_taps` (K4 shares it, so forward and backward pick
-//   the same cells), and the L lanes take each cell in turn by shuffle
-//   (first pixel, fractions, validity; the weights are recomputed from the
-//   fractions by the same `set_weights`, so they are the warping lane's to
-//   the bit). At 64 registers a thread 4 blocks fit an SM; issuing two
-//   samples' loads together took more registers and was slower.
-// - Staged stores. The output is [B, G, D, H, W], x fastest, while a lane
-//   ends with its pixel's GL groups of each hypothesis. The block writes
-//   them to shared memory and then stores each (g, d) row of TX consecutive
-//   pixels with consecutive threads, 16 bytes each where H x W is a
-//   multiple of 4 and the tile lies inside it, masking ragged ends (H x W
-//   not a multiple of TX, D not a multiple of kHypChunk) otherwise. K6's
-//   weights and projections take V * (TX + 12) floats of dynamic shared
-//   memory, within the 48 KB a block gets without opting in for V <= 50 at
-//   every stage; a launch with more views fails, and the wrapper raises.
+//   of samples per pixel: kHypChunk hypotheses (K1, K6) or kGridChunk
+//   eval-grid neighbours (K3: all 9 of the model's). It reads the chunk's
+//   depths or grid coordinates, each view's projection and (K6) each
+//   pixel's view weights once, into shared memory; each lane reads its
+//   reference channels once, into registers, for every sample of the
+//   chunk.
+// - One warp per sample. A pixel's samples s = j * V + v (hypothesis or
+//   neighbour j, view v; K3 has V = 1) go L at a time: lane p computes the
+//   cell of sample s0 + p, and the L lanes take each cell in turn by
+//   shuffle (first pixel, fractions and, for K1 and K6, validity; the
+//   weights are recomputed from the fractions by the same `set_weights`,
+//   so they are the cell lane's to the bit). K1 and K6 warp with the unchanged `warp_taps` (K4
+//   shares it, so forward and backward pick the same cells); K3 takes the
+//   border cell of `border_taps` (K2 and K5 pick theirs with it). At 64
+//   registers a thread 4 blocks fit an SM; issuing two samples' loads
+//   together took more registers and was slower.
+// - Staged stores. The output is [B, G, D, H, W], x fastest (K3: the
+//   neighbours in the D slot), while a lane ends with its pixel's GL groups
+//   of each sample. The block writes them to shared memory and then stores
+//   each (g, d) row of TX consecutive pixels with consecutive threads, 16
+//   bytes each where H x W is a multiple of 4 and the tile lies inside it,
+//   masking ragged ends (H x W not a multiple of TX, D not a multiple of
+//   the chunk) otherwise. K6's weights and projections take V * (TX + 12)
+//   floats of dynamic shared memory, within the 48 KB a block gets without
+//   opting in for V <= 50 at every stage; a launch with more views fails,
+//   and the wrapper raises.
 // The TPU kernel's source window (and its escape counter) does not exist:
 // every sample reads the source directly, so none is lost.
 //
-// K3 and K7 keep the thread-per-sample design (`group_corr_kernel`): one
-// thread per (b, d, pixel), x fastest, each reading its sample's 4 corners
-// x C channels in 16-byte vectors. K7 has no model path and is the
-// measured baseline of that design beside K1; K3 (3 launches per forward)
-// comes later in the queue of redesigns.
+// K7 keeps the thread-per-sample design (`group_corr_kernel`): one thread
+// per (b, d, pixel), x fastest, each reading its sample's 4 corners x C
+// channels in 16-byte vectors. K7 has no model path and is the measured
+// baseline of that design beside K1.
 
 #include "common.cuh"
 
 namespace pmn {
 
-// Where the thread-per-sample kernel's coordinates come from.
-enum class Coords {
-  kBorder,  // K3: normalized grid (gx, gy)[idx], align_corners=False, border
-  kPixels,  // K7: source pixel coordinates (ix, iy)[idx], align_corners=True
-};
-
-template <typename T, int C, int G, Coords kMode>
+// K7: one thread per (b, d, pixel) at source pixel coordinates (ix, iy).
+template <typename T, int C, int G>
 __global__ void __launch_bounds__(kThreads) group_corr_kernel(
-    const T* __restrict__ src, const T* __restrict__ ref, const float* __restrict__ gx,
-    const float* __restrict__ gy, float* __restrict__ out, int B, int D, int H, int W, int Hs,
+    const T* __restrict__ src, const T* __restrict__ ref, const float* __restrict__ ix,
+    const float* __restrict__ iy, float* __restrict__ out, int B, int D, int H, int W, int Hs,
     int Ws) {
   constexpr int CG = C / G;
 
@@ -104,12 +107,7 @@ __global__ void __launch_bounds__(kThreads) group_corr_kernel(
   const int d = (int)(bd % D);
   const int b = (int)(bd / D);
 
-  Taps taps;
-  if constexpr (kMode == Coords::kBorder) {
-    taps = border_taps(unnormalize_border(gx[idx], Ws), unnormalize_border(gy[idx], Hs), Hs, Ws);
-  } else {
-    taps = coord_taps(gx[idx], gy[idx], Hs, Ws);
-  }
+  const Taps taps = coord_taps(ix[idx], iy[idx], Hs, Ws);
   float res[G];
   group_sums<T, C, G>(src + (long long)b * Hs * Ws * C, Ws, taps,
                       ref + ((long long)b * hw + pix) * C, res);
@@ -118,8 +116,20 @@ __global__ void __launch_bounds__(kThreads) group_corr_kernel(
   for (int g = 0; g < G; ++g) o[(long long)g * D * hw] = res[g] * (1.0f / CG);
 }
 
-// Hypotheses one block of the tiled kernel computes for its pixels.
+// Where the tiled kernel's samples come from.
+enum class Samples {
+  kWarp,   // K1: depth hypotheses warped through one projection
+  kViews,  // K6: the same through V projections, weighted per view
+  kGrid,   // K3: eval-grid neighbours (gx, gy) of the reference itself
+};
+
+// Samples one block of the tiled kernel computes for each of its pixels:
+// hypotheses (K1, K6), or eval-grid neighbours (K3: the model has 9).
 constexpr int kHypChunk = 8;
+constexpr int kGridChunk = 9;
+
+template <Samples kMode>
+constexpr int kChunkOf = kMode == Samples::kGrid ? kGridChunk : kHypChunk;
 
 // The tiled kernel's lane layout for a (payload, C, G) instantiation.
 template <typename T, int C, int G>
@@ -133,39 +143,53 @@ struct TileLayout {
   static_assert(C % KC == 0 && KC % N == 0 && KC % CG == 0 && 32 % L == 0, "lane layout");
 };
 
-// K1 (kViews false: V = 1, no weights) and K6.
-template <typename T, int C, int G, bool kViews>
-__global__ void __launch_bounds__(kThreads, 4) warp_corr_tile_kernel(
+// K1 (kWarp: V = 1, no weights), K6 (kViews) and K3 (kGrid: src = ref, V =
+// 1). s0 and s1 are the per-sample inputs [B, D, H, W]: the depths (s1
+// unused), or the grid gx and gy.
+template <typename T, int C, int G, Samples kMode>
+__global__ void __launch_bounds__(kThreads, 4) group_corr_tile_kernel(
     const T* __restrict__ src, const T* __restrict__ ref, const float* __restrict__ mats,
-    const float* __restrict__ depth, const float* __restrict__ vw, float* __restrict__ out,
-    int V, int D, int H, int W, int Hs, int Ws) {
+    const float* __restrict__ s0_in, const float* __restrict__ s1_in,
+    const float* __restrict__ vw, float* __restrict__ out, int V, int D, int H, int W, int Hs,
+    int Ws) {
   using Layout = TileLayout<T, C, G>;
   constexpr int N = Layout::N, CG = Layout::CG, KC = Layout::KC, L = Layout::L;
   constexpr int GL = Layout::GL, TX = Layout::TX;
+  constexpr bool kViews = kMode == Samples::kViews;
+  constexpr int kChunk = kChunkOf<kMode>;
+  constexpr int kInputs = kMode == Samples::kGrid ? 2 : 1;  // depth, or (gx, gy)
   // + 1: the L lanes of a slot write L rows at once; the padding spreads
   // them over the banks
-  __shared__ float staged[G][kHypChunk][TX + 1];
-  __shared__ float dep_s[kHypChunk][TX];
+  __shared__ float staged[G][kChunk][TX + 1];
+  __shared__ float smp_s[kInputs][kChunk][TX];
   extern __shared__ float views_s[];  // projections [V][12], then K6's weights [V][TX]
   float* mats_s = views_s;
   float* vw_s = views_s + V * 12;
 
   const long long hw = (long long)H * W;
   const int b = blockIdx.z;
-  const int d0 = blockIdx.y * kHypChunk;
-  const int nd = min(kHypChunk, D - d0);
+  const int d0 = blockIdx.y * kChunk;
+  const int nd = min(kChunk, D - d0);
   const long long pix0 = (long long)blockIdx.x * TX;
   const int slot = threadIdx.x / L;
   const int part = threadIdx.x % L;
 
-  // The block's inputs other than the maps, read once: the chunk's depths,
-  // each view's projection and (K6) each pixel's view weights.
-  for (int i = threadIdx.x; i < kHypChunk * TX; i += kThreads) {
-    const int j = i / TX;
-    const long long p = pix0 + i % TX;
-    dep_s[j][i % TX] = j < nd && p < hw ? depth[((long long)b * D + d0 + j) * hw + p] : 0.0f;
+  // The block's inputs other than the maps, read once: the chunk's depths
+  // or grid coordinates, each view's projection and (K6) each pixel's view
+  // weights.
+#pragma unroll
+  for (int a = 0; a < kInputs; ++a) {
+    const float* in = a == 0 ? s0_in : s1_in;
+    for (int i = threadIdx.x; i < kChunk * TX; i += kThreads) {
+      const int j = i / TX;
+      const long long p = pix0 + i % TX;
+      smp_s[a][j][i % TX] = j < nd && p < hw ? in[((long long)b * D + d0 + j) * hw + p] : 0.0f;
+    }
   }
-  for (int i = threadIdx.x; i < V * 12; i += kThreads) mats_s[i] = mats[(long long)b * V * 12 + i];
+  if constexpr (kMode != Samples::kGrid) {
+    for (int i = threadIdx.x; i < V * 12; i += kThreads)
+      mats_s[i] = mats[(long long)b * V * 12 + i];
+  }
   if constexpr (kViews) {
     for (int i = threadIdx.x; i < V * TX; i += kThreads) {
       const long long p = pix0 + i % TX;
@@ -185,14 +209,15 @@ __global__ void __launch_bounds__(kThreads, 4) warp_corr_tile_kernel(
   const T* base0 = src + (long long)b * V * Hs * Ws * C + part * KC;
   const long long view_stride = (long long)Hs * Ws * C;
   float m1[12];  // K1's one projection, in registers
-  if constexpr (!kViews) {
+  if constexpr (kMode == Samples::kWarp) {
 #pragma unroll
     for (int i = 0; i < 12; ++i) m1[i] = mats_s[i];
   }
 
-  // The slot's samples s = j * V + v (hypothesis j of the chunk, view v),
-  // L at a time: lane `part` warps sample s0 + part, and the slot's L lanes
-  // then reduce the L samples one after another with its cell, shuffled.
+  // The slot's samples s = j * V + v (sample j of the chunk, view v), L at
+  // a time: lane `part` computes the cell of sample s0 + part, and the
+  // slot's L lanes then reduce the L samples one after another with its
+  // cell, shuffled.
   const int S = nd * V;
   float res[GL];
 #pragma unroll
@@ -204,8 +229,14 @@ __global__ void __launch_bounds__(kThreads, 4) warp_corr_tile_kernel(
     const int s = s0 + part;
     if (s < S) {
       const int sj = s / V;
-      const float* m = kViews ? mats_s + (s - sj * V) * 12 : m1;
-      const Taps t = warp_taps(m, x, y, dep_s[sj][slot], Hs, Ws);
+      Taps t;
+      if constexpr (kMode == Samples::kGrid) {
+        t = border_taps(unnormalize_border(smp_s[0][sj][slot], Ws),
+                        unnormalize_border(smp_s[1][sj][slot], Hs), Hs, Ws);
+      } else {
+        const float* m = kViews ? mats_s + (s - sj * V) * 12 : m1;
+        t = warp_taps(m, x, y, smp_s[0][sj][slot], Hs, Ws);
+      }
       cell = t.y0 * Ws + t.x0;
       fx = t.fx;
       fy = t.fy;
@@ -217,10 +248,12 @@ __global__ void __launch_bounds__(kThreads, 4) warp_corr_tile_kernel(
       Taps taps;
       taps.fx = __shfl_sync(0xffffffffu, fx, i, L);
       taps.fy = __shfl_sync(0xffffffffu, fy, i, L);
-      const int bits = __shfl_sync(0xffffffffu, valid, i, L);
+      // every corner of an eval-grid cell is valid (border clamping); a
+      // constant here also drops K3's per-corner validity tests
+      const int bits = kMode == Samples::kGrid ? 0xF : __shfl_sync(0xffffffffu, valid, i, L);
 #pragma unroll
       for (int t = 0; t < 4; ++t) taps.valid[t] = (bits >> t) & 1;
-      set_weights(taps);  // the warping lane's weights, to the bit
+      set_weights(taps);  // the cell lane's weights, to the bit
       const Corners<T, C> corner(base0 + v * view_stride, __shfl_sync(0xffffffffu, cell, i, L),
                                  Ws);
       uint4 raw[KC / N][4];  // every load of the sample before its arithmetic
@@ -241,7 +274,7 @@ __global__ void __launch_bounds__(kThreads, 4) warp_corr_tile_kernel(
           res[k] = acc[k] * (1.0f / CG);
         }
       }
-      if (++v == V) {  // hypothesis j is summed over every view
+      if (++v == V) {  // sample j is summed over every view
 #pragma unroll
         for (int k = 0; k < GL; ++k) {
           staged[part * GL + k][j][slot] = res[k];
@@ -258,9 +291,9 @@ __global__ void __launch_bounds__(kThreads, 4) warp_corr_tile_kernel(
   __syncthreads();
   float* o = out + (long long)b * G * D * hw + (long long)d0 * hw + pix0;
   if (hw % 4 == 0 && pix0 + TX <= hw) {
-    for (int i = threadIdx.x; i < G * kHypChunk * (TX / 4); i += kThreads) {
+    for (int i = threadIdx.x; i < G * kChunk * (TX / 4); i += kThreads) {
       const int px = 4 * (i % (TX / 4)), row = i / (TX / 4);
-      const int jj = row % kHypChunk, g = row / kHypChunk;
+      const int jj = row % kChunk, g = row / kChunk;
       if (jj < nd) {
         const float* st = &staged[g][jj][px];
         *reinterpret_cast<float4*>(o + ((long long)g * D + jj) * hw + px) =
@@ -268,39 +301,42 @@ __global__ void __launch_bounds__(kThreads, 4) warp_corr_tile_kernel(
       }
     }
   } else {
-    for (int i = threadIdx.x; i < G * kHypChunk * TX; i += kThreads) {
+    for (int i = threadIdx.x; i < G * kChunk * TX; i += kThreads) {
       const int px = i % TX, row = i / TX;
-      const int jj = row % kHypChunk, g = row / kHypChunk;
+      const int jj = row % kChunk, g = row / kChunk;
       if (jj < nd && pix0 + px < hw) o[((long long)g * D + jj) * hw + px] = staged[g][jj][px];
     }
   }
 }
 
-template <typename T, int C, int G, Coords kMode>
-cudaError_t launch_per_sample(const void* src, const void* ref, const void* gx, const void* gy,
+template <typename T, int C, int G>
+cudaError_t launch_per_sample(const void* src, const void* ref, const void* ix, const void* iy,
                               void* out, int B, int D, int H, int W, int Hs, int Ws,
                               cudaStream_t stream) {
   const long long total = (long long)B * D * H * W;
   if (total == 0) return cudaSuccess;
-  group_corr_kernel<T, C, G, kMode><<<num_blocks(total), kThreads, 0, stream>>>(
-      static_cast<const T*>(src), static_cast<const T*>(ref), static_cast<const float*>(gx),
-      static_cast<const float*>(gy), static_cast<float*>(out), B, D, H, W, Hs, Ws);
+  group_corr_kernel<T, C, G><<<num_blocks(total), kThreads, 0, stream>>>(
+      static_cast<const T*>(src), static_cast<const T*>(ref), static_cast<const float*>(ix),
+      static_cast<const float*>(iy), static_cast<float*>(out), B, D, H, W, Hs, Ws);
   return cudaGetLastError();
 }
 
-template <typename T, int C, int G, bool kViews>
-cudaError_t launch_tiled(const void* src, const void* ref, const void* mats, const void* depth,
-                         const void* vw, void* out, int B, int V, int D, int H, int W, int Hs,
-                         int Ws, cudaStream_t stream) {
+template <typename T, int C, int G, Samples kMode>
+cudaError_t launch_tiled(const void* src, const void* ref, const void* mats, const void* s0_in,
+                         const void* s1_in, const void* vw, void* out, int B, int V, int D,
+                         int H, int W, int Hs, int Ws, cudaStream_t stream) {
   constexpr int TX = TileLayout<T, C, G>::TX;
+  constexpr int kChunk = kChunkOf<kMode>;
   const long long hw = (long long)H * W;
   if (B == 0 || D == 0 || hw == 0) return cudaSuccess;
-  const dim3 grid((unsigned int)((hw + TX - 1) / TX), (D + kHypChunk - 1) / kHypChunk, B);
-  const size_t views_bytes = sizeof(float) * V * (kViews ? 12 + TX : 12);
-  warp_corr_tile_kernel<T, C, G, kViews><<<grid, kThreads, views_bytes, stream>>>(
+  const dim3 grid((unsigned int)((hw + TX - 1) / TX), (D + kChunk - 1) / kChunk, B);
+  const size_t views_bytes = kMode == Samples::kGrid   ? 0
+                             : kMode == Samples::kViews ? sizeof(float) * V * (12 + TX)
+                                                        : sizeof(float) * V * 12;
+  group_corr_tile_kernel<T, C, G, kMode><<<grid, kThreads, views_bytes, stream>>>(
       static_cast<const T*>(src), static_cast<const T*>(ref), static_cast<const float*>(mats),
-      static_cast<const float*>(depth), static_cast<const float*>(vw), static_cast<float*>(out),
-      V, D, H, W, Hs, Ws);
+      static_cast<const float*>(s0_in), static_cast<const float*>(s1_in),
+      static_cast<const float*>(vw), static_cast<float*>(out), V, D, H, W, Hs, Ws);
   return cudaGetLastError();
 }
 
@@ -335,8 +371,8 @@ extern "C" int pmn_warp_group_corr(const void* src, const void* ref, const void*
                                    int Hs, int Ws, int C, int G, int bf16, void* stream) {
   return (int)pmn::dispatch(C, G, bf16, [&](auto inst) {
     using I = decltype(inst);
-    return pmn::launch_tiled<typename I::T, I::C, I::G, false>(
-        src, ref, mat12, depth, nullptr, out, B, 1, D, H, W, Hs, Ws,
+    return pmn::launch_tiled<typename I::T, I::C, I::G, pmn::Samples::kWarp>(
+        src, ref, mat12, depth, nullptr, nullptr, out, B, 1, D, H, W, Hs, Ws,
         static_cast<cudaStream_t>(stream));
   });
 }
@@ -347,8 +383,9 @@ extern "C" int pmn_neighbor_group_corr(const void* ref, const void* gx, const vo
                                        int bf16, void* stream) {
   return (int)pmn::dispatch(C, G, bf16, [&](auto inst) {
     using I = decltype(inst);
-    return pmn::launch_per_sample<typename I::T, I::C, I::G, pmn::Coords::kBorder>(
-        ref, ref, gx, gy, out, B, K, H, W, H, W, static_cast<cudaStream_t>(stream));
+    return pmn::launch_tiled<typename I::T, I::C, I::G, pmn::Samples::kGrid>(
+        ref, ref, nullptr, gx, gy, nullptr, out, B, 1, K, H, W, H, W,
+        static_cast<cudaStream_t>(stream));
   });
 }
 
@@ -360,7 +397,7 @@ extern "C" int pmn_coord_group_corr(const void* src, const void* ref, const void
                                     int Hs, int Ws, int C, int G, int bf16, void* stream) {
   return (int)pmn::dispatch(C, G, bf16, [&](auto inst) {
     using I = decltype(inst);
-    return pmn::launch_per_sample<typename I::T, I::C, I::G, pmn::Coords::kPixels>(
+    return pmn::launch_per_sample<typename I::T, I::C, I::G>(
         src, ref, ix, iy, out, B, D, H, W, Hs, Ws, static_cast<cudaStream_t>(stream));
   });
 }
@@ -373,8 +410,8 @@ extern "C" int pmn_warp_group_corr_views(const void* src, const void* ref, const
                                          int bf16, void* stream) {
   return (int)pmn::dispatch(C, G, bf16, [&](auto inst) {
     using I = decltype(inst);
-    return pmn::launch_tiled<typename I::T, I::C, I::G, true>(
-        src, ref, mats, depth, vw, out, B, V, D, H, W, Hs, Ws,
+    return pmn::launch_tiled<typename I::T, I::C, I::G, pmn::Samples::kViews>(
+        src, ref, mats, depth, nullptr, vw, out, B, V, D, H, W, Hs, Ws,
         static_cast<cudaStream_t>(stream));
   });
 }

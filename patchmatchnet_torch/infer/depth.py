@@ -3,10 +3,10 @@
 
 Host-side pre/post-processing around the forward: optional bucket padding
 of (H, W) with edge replication, and the resize back to the original
-resolution (bilinear for depth, nearest for confidence). The reference's
-window derivation, escape counter and sampler demotion are not needed: the
-port's warp kernel reads the source features directly, so no sample can
-leave a window.
+resolution (bilinear for depth, nearest for confidence, both the
+reference's to the bit). The reference's window derivation, escape counter
+and sampler demotion are not needed: the port's warp kernel reads the
+source features directly, so no sample can leave a window.
 """
 
 from __future__ import annotations
@@ -16,11 +16,11 @@ from typing import Any, Dict, Iterable, Tuple, Union
 
 import numpy as np
 import torch
-import torch.nn.functional as F
 
 from patchmatchnet_torch.data.codecs import save_pfm
 from patchmatchnet_torch.models.net import PatchmatchNet
 from patchmatchnet_torch.models.patchmatch import INITIAL_NUM_SAMPLES
+from patchmatchnet_torch.ops.resize import resize_bilinear_maps, resize_nearest_maps
 
 
 class DepthEstimator:
@@ -73,11 +73,8 @@ class DepthEstimator:
         depth, confidence = depth[:, :h0, :w0], confidence[:, :h0, :w0]
         orig_h = int(np.asarray(batch.get("orig_height", h0)).reshape(-1)[0])
         orig_w = int(np.asarray(batch.get("orig_width", w0)).reshape(-1)[0])
-        if (orig_h, orig_w) != (h0, w0):
-            size = (orig_h, orig_w)
-            depth = F.interpolate(depth[:, None], size=size, mode="bilinear",
-                                  align_corners=False)[:, 0]
-            confidence = F.interpolate(confidence[:, None], size=size, mode="nearest")[:, 0]
+        depth = resize_bilinear_maps(depth, orig_h, orig_w)
+        confidence = resize_nearest_maps(confidence, orig_h, orig_w)
         return depth.cpu().numpy(), confidence.cpu().numpy()
 
 

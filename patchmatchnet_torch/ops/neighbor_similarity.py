@@ -5,8 +5,9 @@ Replaces `patchmatchnet_tpu/ops/pallas/similarity_kernel.py` `_kernel` as
 `models/patchmatch.py` `_feature_weight_corr` uses it: the Ke neighbours
 sit in the depth slot, samples are align_corners=False with border
 clamping. The CUDA kernel is `csrc/group_corr.cu`
-(`pmn_neighbor_group_corr`), sharing K1's tap/correlate code with grid
-coordinates; the [P, 4C] taps the TPU path gathers first never exist.
+(`pmn_neighbor_group_corr`): K1's tiled kernel, `group_corr_tile_kernel`,
+with each sample's cell taken from the eval grid by `border_taps`; the
+[P, 4C] taps the TPU path gathers first never exist.
 
 Gradients flow to the grid only. The reference detaches the feature it
 feeds here (`patchmatch.py` `ref_sg`), so the wrapper raises when `ref`

@@ -2,13 +2,15 @@
 `torch.profiler` trace, the time the device was busy, the device time of
 one call and its printed form, and a coarse kind for each kernel name.
 `chip_smoke.py`, `tools/dev/profile_torch_main.py` and `dev/bench_gather.py`
-read their traces through these helpers."""
+read their traces through these helpers; `hand_kernel_id` names the hand
+kernel (K1-K7, D) a device kernel name belongs to."""
 
 from __future__ import annotations
 
 import collections
 import json
 import os
+import re
 import tempfile
 import warnings
 from typing import Callable, Iterable, List, Optional, Tuple
@@ -97,3 +99,29 @@ def kernel_kind(name: str) -> str:
     if "elementwise" in low:
         return "element-wise"
     return "other"
+
+
+# Hand kernels by their device function (csrc/) and, for the tiled kernel,
+# its `Samples` mode, the last template argument: 0 K1, 1 K6, 2 K3.
+_HAND_KERNELS = {
+    "eval_grid_score_kernel": "K2",
+    "group_corr_kernel": "K7",
+    "warp_corr_bwd_kernel": "K4",
+    "neighbor_corr_bwd_kernel": "K5",
+    "gather_lanes_kernel": "D1-D3",
+    "gather_sublanes_kernel": "D4",
+    "gather_rows_kernel": "D5",
+}
+_TILE_MODES = {"0": "K1", "1": "K6", "2": "K3"}
+
+
+def hand_kernel_id(name: str) -> Optional[str]:
+    """The id (K1-K7, D1-D5) of the hand kernel a device kernel name
+    belongs to, None for any other kernel."""
+    found = re.search(r"pmn::(\w+)<", name)
+    if found is None:
+        return None
+    if found.group(1) == "group_corr_tile_kernel":
+        mode = re.search(r"\(pmn::Samples\)(\d)", name)
+        return _TILE_MODES.get(mode.group(1)) if mode else None
+    return _HAND_KERNELS.get(found.group(1))

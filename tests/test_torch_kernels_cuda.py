@@ -153,16 +153,54 @@ def test_autograd_runs_the_backward_kernels(device):
         ops.neighbor_group_corr(ref, grid, 8)
 
 
+def _grid_case(device, b, h, w, where, seed):
+    """Eval grid [b, 9, h, w] x 2 from `build_offset_grid`: offsets of a few
+    pixels ("near"), or so large that most neighbours lie far off the image
+    and are clamped to its border ("far")."""
+    gen = torch.Generator(device=device).manual_seed(seed)
+    scale = 3.0 if where == "near" else 60.0
+    offset = torch.randn((b, h, w, 18), generator=gen, device=device) * scale
+    return build_offset_grid(offset, evaluation_offsets(2), h, w), gen
+
+
+# Shapes and grids of the eval-grid kernels' cases (b, h, w, where): H x W
+# not a multiple of a block's pixels, B = 2, H or W = 2, and neighbours far
+# off the image.
+GRID_CASES = [(1, 20, 36, "near"), (2, 13, 17, "near"), (1, 2, 40, "near"), (1, 9, 2, "near"),
+              (1, 20, 36, "far")]
+
+
 @pytest.mark.parametrize("cost_dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("d", [8, 12, 64])
-def test_eval_grid_score_kernel_matches_plain(device, cost_dtype, d):
-    *_, grid, gen = _case(device, 16, 1, 20, 36, torch.float32, seed=1)
-    x_norm = torch.rand((1, 20, 36, d), generator=gen, device=device)
-    cost = torch.randn((1, 20, 36, d), generator=gen, device=device).to(cost_dtype)
-    fw = torch.rand((1, 9, 20, 36), generator=gen, device=device) * 0.9 + 0.1
+@pytest.mark.parametrize("d", [8, 16, 32, 64, 12, 5])
+@pytest.mark.parametrize("b,h,w,where", GRID_CASES)
+def test_eval_grid_score_kernel_matches_plain(device, cost_dtype, d, b, h, w, where):
+    """K2 against its plain version at the main path's D (runs of 8), D = 12
+    (runs of 4) and D = 5 (runs of 1), f32 and bf16 cost, at each of
+    GRID_CASES; one launch counted per call."""
+    grid, gen = _grid_case(device, b, h, w, where, seed=d)
+    x_norm = torch.rand((b, h, w, d), generator=gen, device=device)
+    cost = torch.randn((b, h, w, d), generator=gen, device=device).to(cost_dtype)
+    fw = torch.rand((b, 9, h, w), generator=gen, device=device) * 0.9 + 0.1
+    before = cuda_build.launch_counts().get("eval_grid_score", 0)
     got = ops.eval_grid_score(x_norm, cost, grid, fw, 0.025)
+    assert cuda_build.launch_counts()["eval_grid_score"] == before + 1
     want = ops.eval_grid_score_reference(x_norm, cost, grid, fw, 0.025)
     torch.testing.assert_close(got, want, rtol=1e-4, atol=1e-4)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("c,g", [(16, 4), (32, 8), (64, 8)])
+@pytest.mark.parametrize("b,h,w,where", GRID_CASES)
+def test_neighbor_kernel_matches_plain(device, dtype, c, g, b, h, w, where):
+    """K3 (the tiled kernel on the eval grid) against its plain version at
+    each of GRID_CASES; one launch counted per call."""
+    grid, gen = _grid_case(device, b, h, w, where, seed=c)
+    ref = torch.randn((b, h, w, c), generator=gen, device=device).to(dtype)
+    before = cuda_build.launch_counts().get("neighbor_group_corr", 0)
+    got = ops.neighbor_group_corr(ref, grid, g)
+    assert cuda_build.launch_counts()["neighbor_group_corr"] == before + 1
+    want = ops.neighbor_group_corr_reference(ref, grid, g)
+    torch.testing.assert_close(got, want, rtol=0, atol=2e-5)
 
 
 def test_wrappers_reject_what_the_kernels_do_not_take(device):

@@ -224,3 +224,48 @@ def test_depth_estimator_bucket_padding(tmp_path, state_dict):
             torch.from_numpy(batch["depth_max"]), init_noise=noise)
     np.testing.assert_array_equal(depth, want_d.numpy()[:, :, :72])
     np.testing.assert_array_equal(conf, want_c.numpy()[:, :, :72])
+
+
+@pytest.mark.parametrize("h,w", [(60, 84), (198, 52)])
+def test_depth_estimator_resize_back_matches_jax_estimator(tmp_path, state_dict, h, w):
+    """At an original size that is not a multiple of 8 the estimator resizes
+    the model's maps back as the JAX estimator does: depth by
+    `resize_bilinear_np`, confidence by `_resize_nearest_np`, applied to the
+    same maps. Both evaluate the same f32 expressions on the same source
+    pixels, so they agree exactly (tolerance 0). At 198 rows (the model runs
+    at 200) F.interpolate's nearest rows differ from the JAX estimator's."""
+    from patchmatchnet_tpu.dataio.image import resize_bilinear_np
+    from patchmatchnet_tpu.infer.depth import _resize_nearest_np
+
+    dataset, estimator = _scene_estimator(tmp_path, state_dict, None, 0, h, w)
+    batch = next(iter(BatchLoader(dataset, batch_size=1, num_threads=1)))
+    hm, wm = batch["images"].shape[2:4]
+    assert (hm, wm) != (h, w) and hm % 8 == 0 and wm % 8 == 0
+    depth, conf = estimator(batch, torch.Generator().manual_seed(5))
+    noise = torch.rand((1, 48, hm // 8, wm // 8), generator=torch.Generator().manual_seed(5))
+    with torch.inference_mode():
+        model_d, model_c, _ = estimator.model(
+            torch.from_numpy(batch["images"]), torch.from_numpy(batch["intrinsics"]),
+            torch.from_numpy(batch["extrinsics"]), torch.from_numpy(batch["depth_min"]),
+            torch.from_numpy(batch["depth_max"]), init_noise=noise)
+    assert depth.shape == conf.shape == (1, h, w)
+    np.testing.assert_array_equal(conf[0], _resize_nearest_np(model_c[0].numpy(), h, w))
+    np.testing.assert_array_equal(depth[0], resize_bilinear_np(model_d[0].numpy(), h, w))
+
+
+@pytest.mark.parametrize("shape_in,shape_out", [((200, 48), (198, 52)), ((232, 64), (230, 60)),
+                                                ((64, 80), (60, 84)), ((16, 24), (40, 9))])
+def test_resize_maps_match_jax_resizers(shape_in, shape_out):
+    """The estimator's map resizes equal the JAX estimator's numpy resizes
+    exactly, up and down, at sizes where F.interpolate's nearest rows do
+    not (200 -> 198, 232 -> 230)."""
+    from patchmatchnet_tpu.dataio.image import resize_bilinear_np
+    from patchmatchnet_tpu.infer.depth import _resize_nearest_np
+    from patchmatchnet_torch.ops.resize import resize_bilinear_maps, resize_nearest_maps
+
+    maps = np.random.default_rng(3).random((2, *shape_in), dtype=np.float32) * 500 + 400
+    t = torch.from_numpy(maps)
+    got_b, got_n = resize_bilinear_maps(t, *shape_out), resize_nearest_maps(t, *shape_out)
+    for i in range(2):
+        np.testing.assert_array_equal(got_b[i].numpy(), resize_bilinear_np(maps[i], *shape_out))
+        np.testing.assert_array_equal(got_n[i].numpy(), _resize_nearest_np(maps[i], *shape_out))

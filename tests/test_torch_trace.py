@@ -53,7 +53,8 @@ def test_fmt_ms(ms, text):
 
 
 @pytest.mark.parametrize("name,kind", [
-    ("void pmn::warp_corr_tile_kernel<__nv_bfloat16, 64, 8, true>(...)", "hand kernels (K1-K7)"),
+    ("void pmn::group_corr_tile_kernel<__nv_bfloat16, 64, 8, (pmn::Samples)1>(...)",
+     "hand kernels (K1-K7)"),
     ("sm80_xmma_fprop_implicit_gemm_bf16bf16", "convolutions and channel-map GEMMs"),
     ("void at::native::vectorized_elementwise_kernel<4, FillFunctor<float>>", "element-wise"),
     ("void at::native::reduce_kernel<512, 1>", "reductions"),
@@ -62,3 +63,16 @@ def test_fmt_ms(ms, text):
 ])
 def test_kernel_kind(name, kind):
     assert trace.kernel_kind(name) == kind
+
+
+@pytest.mark.parametrize("name,kid", [
+    ("void pmn::group_corr_tile_kernel<__nv_bfloat16, 64, 8, (pmn::Samples)0>(const T1 *)", "K1"),
+    ("void pmn::group_corr_tile_kernel<float, 32, 8, (pmn::Samples)1>(const T1 *)", "K6"),
+    ("void pmn::group_corr_tile_kernel<__nv_bfloat16, 16, 4, (pmn::Samples)2>(const T1 *)", "K3"),
+    ("void pmn::group_corr_kernel<__nv_bfloat16, 64, 8>(const T1 *, const T1 *)", "K7"),
+    ("void pmn::eval_grid_score_kernel<__nv_bfloat16, 8>(const float *)", "K2"),
+    ("void pmn::neighbor_corr_bwd_kernel<float, 16, 4>(const T1 *)", "K5"),
+    ("void at::native::vectorized_elementwise_kernel<4, FillFunctor<float>>", None),
+])
+def test_hand_kernel_id(name, kid):
+    assert trace.hand_kernel_id(name) == kid
