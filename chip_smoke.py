@@ -32,7 +32,11 @@ result line:
    (autograd through the plain forwards) at the training stage shapes of
    640x512, B=2, bf16 and f32 payloads; errors relative to the largest
    gradient entry; kernel and plain backward times and the wrapper's
-   device time per launch and per train step.
+   device time per launch and per train step. K4 runs on i.i.d. depths and
+   on the training path's layout (stratified bins at stage 3 D64, a
+   perturbed plane elsewhere), each case with its scatter count
+   (`k4_scatter_counts`): the 16-byte atomics into d_src beside the design
+   before's, and the runs of consecutive samples in one cell.
 8. f32 train-step parity: one f32 train step (kernels on, TF32 off) on a
    64x80, 3-view plane batch against the same step on the CPU (plain
    versions): loss and per-leaf gradient cosine, and the step's launches.
@@ -41,7 +45,8 @@ result line:
    and 6 timed train steps (finite losses, launches per step K1 20 / K4 20
    / K3 3 / K5 3 / K2 0, ms per step, samples/s, peak memory; a
    torch.profiler trace of 2 more steps: launches, device-busy time and
-   device time by kernel kind per step); a
+   device time by kernel kind and by hand kernel id per step; K4's
+   scatter count over the 20 K4 calls of one more step); a
    checkpoint after the last timed step, resumed into a fresh model and
    optimizer, reproduces the next step's loss to 1e-5; then
    `run_training` for one epoch (6 steps and validation) through the
@@ -619,31 +624,46 @@ def backward_tol(dtype):
     return (2e-3, 2e-5) if dtype.itemsize == 4 else (8e-3, 5e-4)
 
 
+def scatter_line(counts) -> str:
+    """K4's scatter count (`k4_scatter_counts`) as printed."""
+    atomics, before = counts["global_atomics"], counts["parent_atomics"]
+    return (f"16-byte f32 atomics into d_src {atomics:,} (design before {before:,}, "
+            f"x{before / max(atomics, 1):.1f}); {counts['samples']:,} samples with a valid "
+            f"corner in {counts['merged_cells']:,} runs of one cell")
+
+
 def backward_parity(device):
     """Phase 7: K4 and K5 vs autograd through their plain forwards at the
     640x512 B=2 training stage shapes. Returns {kernel: {"max_abs_err",
     "ms", "plain_ms", "bytes", "ops"}} with times summed over a train step's launches
-    (bf16 payloads). The bounds are relative to the largest entry;
+    (bf16 payloads; K4 on the i.i.d. depths). The bounds are relative to the largest entry;
     max_abs_err is the absolute error. "ms" is the wrapper's time, as the
-    train step calls it: zeroing the f32 gradient buffers, the launch, and
-    the casts to the payload dtype."""
+    train step calls it: zeroing the f32 source-gradient buffer, the launch,
+    and its cast to the payload dtype. K4 then runs on the training path's
+    layout of the depths at each stage shape (`dev.profile_backward`
+    `path_depth`), held to the same bounds; its device ms per train step
+    is printed beside the i.i.d. cases'."""
     import torch
 
     from patchmatchnet_torch import ops
+    from patchmatchnet_torch.dev.profile_backward import path_depth
     from patchmatchnet_torch.models.patchmatch import (
         STAGE_CONFIG,
         build_offset_grid,
         evaluation_offsets,
     )
     from patchmatchnet_torch.ops.warp import warp_proj_coeffs
+    from patchmatchnet_torch.ops.warp_similarity import k4_scatter_counts
     from patchmatchnet_torch.utils.trace import device_ms, fmt_ms
 
     gen = torch.Generator(device=device).manual_seed(1)
+    path_gen = torch.Generator(device=device).manual_seed(2)  # leaves gen's draws as they were
     b = TRAIN_BATCH
     # (stage, C, G, scale, [(D, K4 launches per train step at N=5)])
     stages = [(3, 64, 8, 8, [(64, 4), (32, 4)]), (2, 32, 8, 4, [(16, 8)]),
               (1, 16, 4, 2, [(8, 4)])]
     summary = new_summary(BACKWARD_KERNELS)
+    per_step = {"iid": 0.0, "path": 0.0}  # K4 device ms per train step by layout
 
     def check(name, label, got, want, dtype):
         tol_max, tol_mean = backward_tol(dtype)
@@ -658,10 +678,13 @@ def backward_parity(device):
                 fail(f"{name} {label} exceeds max {tol_max} / mean {tol_mean} of the largest entry")
             summary[name]["max_abs_err"] = max(summary[name]["max_abs_err"], abs_max)
 
-    def timed(name, label, launches, args, kernel_fn, plain_fn):
+    def timed(name, label, launches, args, kernel_fn, plain_fn, layout=None):
         out = kernel_fn()
         ms, plain_ms, dev_ms = time_ms(kernel_fn), time_ms(plain_fn), device_ms(kernel_fn)
-        add_time(summary[name], name, args, out, launches, ms, plain_ms, dev_ms)
+        if layout != "path":  # the kernels line keeps the i.i.d. cases
+            add_time(summary[name], name, args, out, launches, ms, plain_ms, dev_ms)
+        if layout is not None and per_step[layout] is not None:
+            per_step[layout] = None if dev_ms is None else per_step[layout] + dev_ms * launches
         work_ms, by = bound(*kernel_work(name, args, out))
         print(f"{name} {label}: wrapper {ms:.4f} ms device {fmt_ms(dev_ms)} plain "
               f"{plain_ms:.4f} ms bound {work_ms:.4f} ms ({by}) (x{launches}/train step)",
@@ -683,17 +706,23 @@ def backward_parity(device):
                 depth = 4.8 + 3.0 * torch.rand((b, d, h, w), generator=gen, device=device)
                 depth[:, -1, :4] = -1.0  # behind the source camera
                 dout = torch.randn((b, g, d, h, w), generator=gen, device=device)
-                args = (src, mat12, depth, ref, g, dout)
-                label = f"stage{stage} C{c} G{g} D{d} B{b} {h}x{w} {tag}"
-                check("warp_group_corr_backward", label, ops.warp_group_corr_backward(*args),
-                      ops.warp_group_corr_backward_reference(*args), dtype)
-                if dtype == torch.bfloat16:
-                    s_ = src.detach().requires_grad_(True)
-                    r_ = ref.detach().requires_grad_(True)
-                    out = ops.warp_group_corr_reference(s_, mat12, depth, r_, g)
-                    timed("warp_group_corr_backward", label, launches, args,
-                          lambda: ops.warp_group_corr_backward(*args),
-                          lambda: torch.autograd.grad(out, (s_, r_), dout, retain_graph=True))
+                for layout in ("iid", "path"):
+                    if layout == "path":
+                        depth = path_depth(stage, b, d, h, w, path_gen, device)
+                    args = (src, mat12, depth, ref, g, dout)
+                    label = f"stage{stage} C{c} G{g} D{d} B{b} {h}x{w} {tag} {layout}"
+                    check("warp_group_corr_backward", label, ops.warp_group_corr_backward(*args),
+                          ops.warp_group_corr_backward_reference(*args), dtype)
+                    print(f"warp_group_corr_backward {label}: "
+                          f"{scatter_line(k4_scatter_counts(*args))}", flush=True)
+                    if dtype == torch.bfloat16:
+                        s_ = src.detach().requires_grad_(True)
+                        r_ = ref.detach().requires_grad_(True)
+                        out = ops.warp_group_corr_reference(s_, mat12, depth, r_, g)
+                        timed("warp_group_corr_backward", label, launches, args,
+                              lambda: ops.warp_group_corr_backward(*args),
+                              lambda: torch.autograd.grad(out, (s_, r_), dout, retain_graph=True),
+                              layout)
             dout = torch.randn((b, g, 9, h, w), generator=gen, device=device)
             args = (ref, grid, g, dout)
             label = f"stage{stage} C{c} G{g} K9 B{b} {h}x{w} {tag}"
@@ -705,6 +734,9 @@ def backward_parity(device):
                 timed("neighbor_group_corr_backward", label, 1, args,
                       lambda: ops.neighbor_group_corr_backward(*args),
                       lambda: torch.autograd.grad(out, (gx, gy), dout, retain_graph=True))
+    print(f"warp_group_corr_backward device ms per train step: i.i.d. depths "
+          f"{fmt_ms(per_step['iid'])}, the training path's layout {fmt_ms(per_step['path'])}",
+          flush=True)
     return summary
 
 
@@ -757,7 +789,12 @@ def train_step_parity(device, state_dict):
 def trace_steps(step, steps: int, path: str) -> None:
     """Profile `steps` calls of step() and print launches, device-busy time,
     idle share of the traced span and device time by kernel kind, per call."""
-    from patchmatchnet_torch.utils.trace import busy_union_us, kernel_kind, trace_device_events
+    from patchmatchnet_torch.utils.trace import (
+        busy_union_us,
+        hand_kernel_id,
+        kernel_kind,
+        trace_device_events,
+    )
 
     events = trace_device_events(step, steps, path)
     if not events:
@@ -765,20 +802,43 @@ def trace_steps(step, steps: int, path: str) -> None:
         return
     busy = busy_union_us((s, s + d) for _, _, s, d in events)
     span = max(s + d for _, _, s, d in events) - min(s for _, _, s, _ in events)
-    kinds = {}
+    kinds, hand = {}, {}
     launches = 0
     for cat, name, _, dur in events:
         if cat == "kernel":
             launches += 1
-            k = kinds.setdefault(kernel_kind(name), [0.0, 0])
-            k[0] += dur
-            k[1] += 1
+            for table, key in ((kinds, kernel_kind(name)), (hand, hand_kernel_id(name))):
+                if key is not None:
+                    k = table.setdefault(key, [0.0, 0])
+                    k[0] += dur
+                    k[1] += 1
     print(f"trace of {steps} steps: {launches / steps:.0f} kernel launches per step, device "
           f"busy {busy / steps / 1e3:.2f} ms of {span / steps / 1e3:.2f} ms traced span per step "
           f"(idle share {1 - busy / span:.3f}); device ms per step by kind: "
           + ", ".join(f"{name} {us / steps / 1e3:.2f} ({n / steps:.0f})"
                       for name, (us, n) in sorted(kinds.items(), key=lambda kv: -kv[1][0])),
           flush=True)
+    print("hand kernels per step (device ms, launches): "
+          + ", ".join(f"{kid} {us / steps / 1e3:.4f} ({n / steps:.0f})"
+                      for kid, (us, n) in sorted(hand.items())), flush=True)
+
+
+def step_scatter(step) -> None:
+    """Run step() once with K4's calls recorded and print K4's scatter count
+    (`k4_scatter_counts`) summed over them."""
+    from patchmatchnet_torch.dev.profile_backward import record_calls
+    from patchmatchnet_torch.ops.warp_similarity import k4_scatter_counts
+
+    calls = [args for kid, args in record_calls(step) if kid == "K4"]
+    total = {}
+    for args in calls:
+        for key, v in k4_scatter_counts(*args).items():
+            total[key] = total.get(key, 0) + v
+    print(f"K4 scatter over one train step's {len(calls)} calls: {scatter_line(total)}",
+          flush=True)
+    if len(calls) != EXPECTED_PER_STEP["warp_group_corr_backward"]:
+        fail(f"one train step made {len(calls)} K4 calls, expected "
+             f"{EXPECTED_PER_STEP['warp_group_corr_backward']}")
 
 
 def training_path(device, scratch):
@@ -837,6 +897,7 @@ def training_path(device, scratch):
     print(f"launch counts over {TIMED_STEPS} steps: {counts}", flush=True)
     trace_steps(lambda: train_step(model, opt, batches[1], 1e-3, step_noise(batches[1], 1, 1)),
                 2, os.path.join(scratch, "train_trace.json"))
+    step_scatter(lambda: train_step(model, opt, batches[2], 1e-3, step_noise(batches[2], 1, 2)))
     if not all(math.isfinite(v) for v in losses):
         fail(f"non-finite training loss: {losses}")
     for name, per in EXPECTED_PER_STEP.items():

@@ -49,6 +49,25 @@ struct VecLoad<__nv_bfloat16> {
   }
 };
 
+// The lane layout of the tiled kernels (K1, K3, K6 in group_corr.cu; K5 in
+// group_corr_bwd.cu) for a (payload, C, G) instantiation: a lane owns
+// KC consecutive channels (whole 16-byte vectors and whole groups), L lanes
+// hold one sample, and a block of kThreads holds TX reference pixels.
+template <typename T, int C, int G>
+struct TileLayout {
+  static constexpr int N = VecLoad<T>::N;     // channels in a 16-byte vector
+  static constexpr int CG = C / G;            // channels in a group
+  static constexpr int KC = N > CG ? N : CG;  // channels a lane owns
+  static constexpr int L = C / KC;            // lanes of one sample
+  static constexpr int GL = KC / CG;          // groups a lane owns
+  static constexpr int TX = kThreads / L;     // reference pixels of a block
+  static_assert(C % KC == 0 && KC % N == 0 && KC % CG == 0 && 32 % L == 0, "lane layout");
+};
+
+// Eval-grid neighbours a block of K3 or K5 takes for each of its pixels
+// (the model has 9).
+constexpr int kGridChunk = 9;
+
 __device__ __forceinline__ float to_float(float v) { return v; }
 __device__ __forceinline__ float to_float(__nv_bfloat16 v) { return __bfloat162float(v); }
 

@@ -124,24 +124,11 @@ enum class Samples {
 };
 
 // Samples one block of the tiled kernel computes for each of its pixels:
-// hypotheses (K1, K6), or eval-grid neighbours (K3: the model has 9).
+// hypotheses (K1, K6), or eval-grid neighbours (K3, common.cuh `kGridChunk`).
 constexpr int kHypChunk = 8;
-constexpr int kGridChunk = 9;
 
 template <Samples kMode>
 constexpr int kChunkOf = kMode == Samples::kGrid ? kGridChunk : kHypChunk;
-
-// The tiled kernel's lane layout for a (payload, C, G) instantiation.
-template <typename T, int C, int G>
-struct TileLayout {
-  static constexpr int N = VecLoad<T>::N;     // channels in a 16-byte vector
-  static constexpr int CG = C / G;            // channels in a group
-  static constexpr int KC = N > CG ? N : CG;  // channels a lane owns
-  static constexpr int L = C / KC;            // lanes of one sample
-  static constexpr int GL = KC / CG;          // groups a lane owns
-  static constexpr int TX = kThreads / L;     // reference pixels of a block
-  static_assert(C % KC == 0 && KC % N == 0 && KC % CG == 0 && 32 % L == 0, "lane layout");
-};
 
 // K1 (kWarp: V = 1, no weights), K6 (kViews) and K3 (kGrid: src = ref, V =
 // 1). s0 and s1 are the per-sample inputs [B, D, H, W]: the depths (s1

@@ -18,14 +18,17 @@ as the reference's warp grid is built under no_grad
 (`windowed_similarity.py` `_wgsp_bwd`). On CUDA the backward is K4
 (`csrc/group_corr_bwd.cu`, `pmn_warp_group_corr_backward`), replacing
 `_kernel_proj_bwd`; on the CPU it is autograd through the plain version.
+K4 merges the consecutive hypotheses of a pixel that sample one source
+cell, so it reads that cell's taps and adds its terms to the source
+gradient once; `k4_scatter_counts` counts the merged cells and the atomics.
 K6 and K7 are forward only, as their TPU kernels are.
 """
 
 from __future__ import annotations
 
-import torch
+from typing import Dict, Tuple
 
-from typing import Tuple
+import torch
 
 from patchmatchnet_torch.ops import cuda_build
 from patchmatchnet_torch.ops.grid_sample import grid_sample_2d
@@ -175,8 +178,10 @@ def warp_group_corr_backward(
     b, d, h, w, hs, ws, c = _check_inputs(src, mat12, depth, ref, groups)
     dev = src.device
     cuda_build.check_cuda_tensor("dout", dout, dev, (torch.float32,), (b, groups, d, h, w))
+    # d_src sums the terms of many pixels with f32 atomics, then takes the
+    # payload dtype; each pixel's d_ref is stored once, in the payload dtype
     d_src = torch.zeros((b, hs, ws, c), dtype=torch.float32, device=dev)
-    d_ref = torch.zeros((b, h, w, c), dtype=torch.float32, device=dev)
+    d_ref = torch.empty((b, h, w, c), dtype=ref.dtype, device=dev)
     lib = cuda_build.kernel_library()
     with torch.cuda.device(dev):
         rc = lib.pmn_warp_group_corr_backward(
@@ -185,7 +190,52 @@ def warp_group_corr_backward(
             groups, int(src.dtype == torch.bfloat16), cuda_build.stream_handle(dev),
         )
     cuda_build.check_launch("warp_group_corr_backward", rc)
-    return d_src.to(src.dtype), d_ref.to(ref.dtype)
+    return d_src.to(src.dtype), d_ref
+
+
+def k4_scatter_counts(
+    src: torch.Tensor, mat12: torch.Tensor, depth: torch.Tensor,
+    ref: torch.Tensor, groups: int, dout: torch.Tensor,
+) -> Dict[str, int]:
+    """How K4 scatters d_src for its arguments (those of
+    `warp_group_corr_backward`; `ref`, `groups` and `dout` are not read),
+    from its samples' cells, in plain PyTorch on the arguments' device. K4
+    walks each pixel's hypotheses in order and merges consecutive samples
+    with a valid corner that fall in one cell (the same first pixel and
+    valid corners); a merged cell reads its taps once and adds its terms to
+    each valid corner once.
+    - samples: samples with a valid corner;
+    - merged_cells: merged cells;
+    - global_atomics: 16-byte f32 atomics into d_src, C / 4 per valid corner
+      of a merged cell;
+    - parent_atomics: samples x 4 x C / 4, those of the design before (one
+      per sample, corner and 4 channels; it skipped invalid corners).
+    """
+    b, hs, ws, c = src.shape
+    _, d, h, w = depth.shape
+    ix, iy = warp_coords(mat12, depth, hs, ws)
+    x0, y0 = torch.floor(ix), torch.floor(iy)
+    x0v, x1v = (x0 >= 0) & (x0 <= ws - 1), (x0 >= -1) & (x0 <= ws - 2)
+    y0v, y1v = (y0 >= 0) & (y0 <= hs - 1), (y0 >= -1) & (y0 <= hs - 2)
+    valid = (x0v & y0v, x1v & y0v, x0v & y1v, x1v & y1v)  # corners in Taps order
+    corners = sum(v.long() for v in valid)
+    bits = sum(v.long() << t for t, v in enumerate(valid))
+    x0 = torch.where(corners > 0, x0, 0.0).long()
+    y0 = torch.where(corners > 0, y0, 0.0).long()
+    cell = torch.where(corners > 0, ((y0 + 1) * (ws + 1) + x0 + 1) * 16 + bits, -1)
+    last = torch.full_like(cell[:, 0], -1)
+    added = n_merged = 0
+    for j in range(d):
+        new = (cell[:, j] >= 0) & (cell[:, j] != last)
+        added += int((new * corners[:, j]).sum())
+        n_merged += int(new.sum())
+        last = torch.where(cell[:, j] >= 0, cell[:, j], last)
+    return {
+        "samples": int((corners > 0).sum()),
+        "merged_cells": n_merged,
+        "global_atomics": added * (c // 4),
+        "parent_atomics": b * d * h * w * 4 * (c // 4),
+    }
 
 
 def _refuse_grad(name: str, *tensors: torch.Tensor) -> None:

@@ -106,8 +106,8 @@ def kernel_kind(name: str) -> str:
 _HAND_KERNELS = {
     "eval_grid_score_kernel": "K2",
     "group_corr_kernel": "K7",
-    "warp_corr_bwd_kernel": "K4",
-    "neighbor_corr_bwd_kernel": "K5",
+    "warp_corr_bwd_merge_kernel": "K4",
+    "neighbor_corr_bwd_tile_kernel": "K5",
     "gather_lanes_kernel": "D1-D3",
     "gather_sublanes_kernel": "D4",
     "gather_rows_kernel": "D5",

@@ -12,7 +12,7 @@ import torch
 
 from patchmatchnet_torch import ops
 from patchmatchnet_torch.models.patchmatch import build_offset_grid, evaluation_offsets
-from patchmatchnet_torch.ops import cuda_build
+from patchmatchnet_torch.ops import cuda_build, warp_similarity
 from patchmatchnet_torch.ops.warp import warp_proj_coeffs
 
 pytestmark = pytest.mark.cuda
@@ -168,6 +168,112 @@ def _grid_case(device, b, h, w, where, seed):
 # off the image.
 GRID_CASES = [(1, 20, 36, "near"), (2, 13, 17, "near"), (1, 2, 40, "near"), (1, 9, 2, "near"),
               (1, 20, 36, "far")]
+
+
+def _within_backward_tol(got, want, dtype):
+    """The bound of `chip_smoke.py` `backward_tol`, relative to the largest
+    plain entry: max 2e-3 and mean 2e-5 for f32 payloads, 8e-3 and 5e-4 for
+    bf16 (f32 sums in another order; a bf16 result may round to the
+    neighbouring value). All-zero gradients must be exact."""
+    scale = want.float().abs().max()
+    err = (got.float() - want.float()).abs()
+    if scale == 0:
+        assert err.max() == 0
+        return
+    tol_max, tol_mean = (2e-3, 2e-5) if dtype == torch.float32 else (8e-3, 5e-4)
+    assert err.max() <= tol_max * scale and err.mean() <= tol_mean * scale, (
+        err.max().item(), err.mean().item(), scale.item())
+
+
+def _scatter_case(device, c, g, b, d, h, w, layout, dtype, seed=0):
+    """K4's arguments with the depth hypotheses laid out for its scatter.
+    The source camera sits right of and above the reference (baseline 0.35
+    each way), so a sample moves right and up with its inverse depth.
+    "plane": the training path's layout, every pixel's hypotheses 0.002
+    apart in inverse depth around a plane at 6, so consecutive ones mostly
+    share a cell; "wide": inverse depths uniform over [0.02, 2], so they
+    rarely do; "mixed": the plane in the top half, wide in the bottom;
+    "behind": every sample behind the source camera."""
+    gen = torch.Generator(device=device).manual_seed(seed)
+    f = 1.1 * max(h, w)
+    k = torch.tensor([[f, 0, w / 2.0], [0, f, h / 2.0], [0, 0, 1]])
+    projs = []
+    for tx, ty in ((0.0, 0.0), (0.35, -0.35)):
+        p = torch.eye(4)
+        p[:3, :4] = k @ torch.tensor([[1.0, 0, 0, tx], [0, 1, 0, ty], [0, 0, 1, 0]])
+        projs.append(p)
+    mat12 = warp_proj_coeffs(projs[1][None], projs[0][None]).to(device).expand(b, 12)
+    steps = torch.arange(d, device=device).reshape(1, d, 1, 1) - d // 2
+    inv = (1.0 / 6.0 + 0.002 * steps
+           + 0.001 * torch.rand((b, 1, h, w), generator=gen, device=device)).expand(b, d, h, w)
+    wide = 0.02 + 1.98 * torch.rand((b, d, h, w), generator=gen, device=device)
+    if layout == "wide":
+        inv = wide
+    elif layout == "mixed":
+        inv = torch.where(torch.arange(h, device=device).reshape(1, 1, h, 1) >= h // 2, wide, inv)
+    depth = 1.0 / inv
+    if layout == "behind":
+        depth = -depth
+    src = torch.randn((b, max(h, 2), max(w, 2), c), generator=gen, device=device).to(dtype)
+    ref = torch.randn((b, h, w, c), generator=gen, device=device).to(dtype)
+    dout = torch.randn((b, g, d, h, w), generator=gen, device=device)
+    return src, mat12.contiguous(), depth.contiguous(), ref, g, dout
+
+
+# K4's cases (b, d, h, w, layout): consecutive hypotheses mostly in one cell,
+# rarely, both in one launch, all behind the camera; H x W not a multiple
+# of a block's pixels, D = 1, D odd, H = 1.
+SCATTER_CASES = [(2, 16, 20, 36, "plane"), (2, 16, 20, 36, "wide"), (2, 16, 40, 36, "mixed"),
+                 (1, 6, 20, 36, "behind"), (1, 11, 13, 17, "plane"), (1, 1, 9, 40, "plane"),
+                 (1, 6, 1, 7, "plane")]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("c,g", [(16, 4), (32, 8), (64, 8)])
+@pytest.mark.parametrize("b,d,h,w,layout", SCATTER_CASES)
+def test_warp_backward_kernel_matches_plain_on_depth_layouts(device, dtype, c, g, b, d, h, w,
+                                                             layout):
+    """K4 (d_src, d_ref) against its plain version on depth layouts that
+    keep its window of source positions in place, move it far each time,
+    or both in one launch (as `k4_scatter_counts` shows); one launch
+    counted; d_src and d_ref in the payload dtype."""
+    args = _scatter_case(device, c, g, b, d, h, w, layout, dtype)
+    counts = warp_similarity.k4_scatter_counts(*args)
+    share = counts["merged_cells"] / max(counts["samples"], 1)
+    if layout == "behind":
+        assert counts["samples"] == 0 and counts["global_atomics"] == 0
+    elif layout == "wide":
+        assert share > 0.8, counts
+    elif d > 4:
+        assert share < (0.8 if layout == "mixed" else 0.5), counts
+    before = cuda_build.launch_counts().get("warp_group_corr_backward", 0)
+    got = ops.warp_group_corr_backward(*args)
+    assert cuda_build.launch_counts()["warp_group_corr_backward"] == before + 1
+    want = ops.warp_group_corr_backward_reference(*args)
+    for x, y in zip(got, want):
+        assert x.dtype == dtype and x.shape == y.shape
+        _within_backward_tol(x, y, dtype)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("c,g", [(16, 4), (32, 8), (64, 8)])
+@pytest.mark.parametrize("b,h,w,where", [(1, 20, 36, "near"), (2, 13, 17, "near"),
+                                         (1, 2, 40, "near"), (1, 9, 2, "near"),
+                                         (1, 20, 36, "far")])
+def test_neighbor_backward_kernel_matches_plain(device, dtype, c, g, b, h, w, where):
+    """K5 (d_gx, d_gy) against its plain version on ragged pixel tiles (H x
+    W not a multiple of a block's pixels, H or W = 2) and on neighbours
+    clamped at the border ("far"); one launch counted."""
+    grid, gen = _grid_case(device, b, h, w, where, seed=c + 1)
+    ref = torch.randn((b, h, w, c), generator=gen, device=device).to(dtype)
+    dout = torch.randn((b, g, 9, h, w), generator=gen, device=device)
+    before = cuda_build.launch_counts().get("neighbor_group_corr_backward", 0)
+    got = ops.neighbor_group_corr_backward(ref, grid, g, dout)
+    assert cuda_build.launch_counts()["neighbor_group_corr_backward"] == before + 1
+    want = ops.neighbor_group_corr_backward_reference(ref, grid, g, dout)
+    for x, y in zip(got, want):
+        assert x.dtype == torch.float32 and x.shape == y.shape
+        _within_backward_tol(x, y, dtype)
 
 
 @pytest.mark.parametrize("cost_dtype", [torch.float32, torch.bfloat16])

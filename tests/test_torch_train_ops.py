@@ -63,6 +63,7 @@ from patchmatchnet_torch.ops import (
     warp_group_corr,
     warp_group_corr_backward,
 )
+from patchmatchnet_torch.ops import warp_similarity
 from patchmatchnet_torch.ops.warp_similarity import group_mean_matrix
 from patchmatchnet_torch.train import (
     build_stage_pyramid,
@@ -182,6 +183,114 @@ def test_neighbor_backward_matches_jax_vjp(payload, c, g):
     _assert_close_to_max(got_gy.numpy(), want_gy)
     clamped = (sx < 0) | (sx > w - 1)
     assert (got_gx.numpy()[clamped] == 0).all(), "no gradient where the clamp binds"
+
+
+def _scatter_brute_force(mat12, depth, hs, ws, c):
+    """`k4_scatter_counts` recomputed sample by sample in numpy: the warp of
+    `warp_taps` in f32 operations, and each pixel's hypotheses in order,
+    consecutive samples with a valid corner in one cell (first pixel and
+    valid corners) merged."""
+    b, d, h, w = depth.shape
+    f32 = np.float32
+    out = dict(samples=0, merged_cells=0, global_atomics=0,
+               parent_atomics=b * d * h * w * 4 * (c // 4))
+    vv, uu = np.meshgrid(np.arange(h, dtype=f32), np.arange(w, dtype=f32), indexing="ij")
+    for bi in range(b):
+        m = mat12[bi].astype(f32)
+        rx, ry, rz = (m[i] * uu + m[i + 1] * vv + m[i + 2] for i in (0, 4, 8))
+        last = {}
+        for di in range(d):
+            dep = depth[bi, di].astype(f32)
+            px, py, pz = rx * dep + m[3], ry * dep + m[7], rz * dep + m[11]
+            behind = pz <= f32(1e-3)
+            with np.errstate(divide="ignore", invalid="ignore"):
+                ix = np.where(behind, f32(ws), px / pz)
+                iy = np.where(behind, f32(hs), py / pz)
+            for y in range(h):
+                for x in range(w):
+                    x0, y0 = np.floor(ix[y, x]), np.floor(iy[y, x])
+                    vx = (0 <= x0 <= ws - 1, -1 <= x0 <= ws - 2)
+                    vy = (0 <= y0 <= hs - 1, -1 <= y0 <= hs - 2)
+                    valid = [t for t in range(4) if vx[t & 1] and vy[t >> 1]]
+                    if not valid:
+                        continue
+                    out["samples"] += 1
+                    if last.get((y, x)) != (x0, y0, tuple(valid)):
+                        out["merged_cells"] += 1
+                        out["global_atomics"] += len(valid) * (c // 4)
+                    last[y, x] = (x0, y0, tuple(valid))
+    return out
+
+
+@pytest.mark.parametrize("case", ["plane", "iid", "behind_and_off"])
+@pytest.mark.parametrize("c", [16, 64])
+def test_k4_scatter_counts_match_brute_force(case, c):
+    """`k4_scatter_counts` against `_scatter_brute_force`: a plane (each
+    pixel's hypotheses 0.002 apart in inverse depth: most merge), i.i.d.
+    depths over a wide range (few merge), and the plane with samples behind
+    the camera and far off the image (no valid corner: counted nowhere, and
+    they do not break a merged run)."""
+    rng = np.random.default_rng(7)
+    b, d, h, w = 2, 16, 12, 21
+    ref_proj, src_proj = _projections(h, w, baseline=0.35)
+    mat12 = np.array(jax_warp_proj_coeffs(jnp.asarray(src_proj), jnp.asarray(ref_proj)))
+    mat12 = np.repeat(mat12, b, axis=0)
+    inv = 1.0 / 6.0 + 0.002 * (np.arange(d) - d // 2)[None, :, None, None]
+    depth = np.broadcast_to(1.0 / inv, (b, d, h, w)).astype(np.float32).copy()
+    if case == "iid":
+        depth = (1.0 / rng.uniform(0.02, 2.0, (b, d, h, w))).astype(np.float32)
+    if case == "behind_and_off":
+        depth[:, 3, :4] = -1.0  # behind the source camera
+        depth[:, 5, 4:8] = 0.01  # so near that the warp leaves the image
+    src = torch.zeros((b, h, w, c), dtype=torch.bfloat16)
+    got = warp_similarity.k4_scatter_counts(src, torch.from_numpy(mat12),
+                                            torch.from_numpy(depth), src, c // 4, None)
+    assert got == _scatter_brute_force(mat12, depth, h, w, c)
+    if case == "iid":
+        assert got["merged_cells"] > 0.8 * got["samples"]
+    else:
+        assert got["merged_cells"] < 0.5 * got["samples"]
+    assert 0 < got["global_atomics"] < got["parent_atomics"]
+
+
+def test_profile_backward_records_calls_and_lays_out_the_path():
+    """`dev.profile_backward`: `record_calls` returns cloned arguments of a
+    step's K4 and K5 calls and puts the wrappers back, `call_cases` turns
+    them into cases; `path_depth` at stage 3 D64 puts hypothesis d of every
+    pixel in inverse-depth bin d, and elsewhere is sorted around the plane."""
+    from patchmatchnet_torch.dev import profile_backward
+    from patchmatchnet_torch.ops import neighbor_similarity
+
+    gen = torch.Generator().manual_seed(0)
+    b, d, h, w, c, g = 1, 4, 6, 8, 16, 4
+    mat12 = profile_backward.rig_mat12(h, w, 8, b, "cpu")
+    src, ref = torch.randn((b, h, w, c)), torch.randn((b, h, w, c))
+    depth = profile_backward.iid_depth(b, d, h, w, gen, "cpu")
+    k4_args = (src, mat12, depth, ref, g, torch.randn((b, g, d, h, w)))
+    grid = (torch.rand((b, 9, h, w)) * 2 - 1, torch.rand((b, 9, h, w)) * 2 - 1)
+    k5_args = (ref, grid, g, torch.randn((b, g, 9, h, w)))
+    wrappers = (warp_similarity.warp_group_corr_backward,
+                neighbor_similarity.neighbor_group_corr_backward)
+
+    def step():
+        warp_similarity.warp_group_corr_backward(*k4_args)
+        neighbor_similarity.neighbor_group_corr_backward(*k5_args)
+
+    calls = profile_backward.record_calls(step)
+    assert (warp_similarity.warp_group_corr_backward,
+            neighbor_similarity.neighbor_group_corr_backward) == wrappers
+    assert [kid for kid, _ in calls] == ["K4", "K5"]
+    assert torch.equal(calls[0][1][2], depth) and calls[0][1][2] is not depth
+    assert torch.equal(calls[1][1][1][0], grid[0]) and calls[1][1][2] == g
+    cases = profile_backward.call_cases(calls)
+    assert [(kid, layout, n) for kid, _, layout, _, n in cases] == [("K4", "train", 1),
+                                                                    ("K5", "train", 1)]
+    inv_lo, inv_hi = 1 / profile_backward.DEPTH_MAX, 1 / profile_backward.DEPTH_MIN
+    strata = profile_backward.path_depth(3, b, 64, h, w, gen, "cpu")
+    bins = ((1 / strata - inv_lo) / (inv_hi - inv_lo) * 64).floor()
+    assert torch.equal(bins, torch.arange(64.0).reshape(1, 64, 1, 1).expand_as(bins))
+    plane = profile_backward.path_depth(2, b, 16, h, w, gen, "cpu")
+    assert (plane.diff(dim=1) < 0).all() and (plane - profile_backward.PLANE).abs().max() < 0.5
 
 
 def test_neighbor_corr_refuses_a_feature_with_grad():
