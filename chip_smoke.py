@@ -14,10 +14,11 @@ result line:
    of 10 calls) and its bound (the larger of its bytes over the card's
    memory rate and its f32 operations over its f32 rate). Fails unless K6
    equals the per-view route it replaces (4 K1 launches and the weighted
-   sum) and K7 on the warp coordinates equals K1, both to the bit; K7 on
-   those coordinates (the thread-per-sample design computing K1's values)
-   is timed beside K1. One line per kernel of the main path gives its
-   device ms per stage shape and per forward.
+   sum), also with 64 views at stage 2's shape, and K7 on the warp
+   coordinates equals K1, both to the bit; K7 on those coordinates (the
+   same tiled kernel reading the coordinates K1 computes) is timed beside
+   K1. One line per kernel of the main path gives its device ms per stage
+   shape and per forward.
 4. f32 golden parity: the f32 model (kernels on, TF32 off) against the
    captured reference outputs in tests/golden/.
 5. main path: a 1152x864, 5-view synthetic scene through MVSDataset ->
@@ -26,8 +27,10 @@ result line:
    K3 3); reports ms per map, MPix/s and peak device memory.
 6. coordinate-input path: a plane sweep through `coord_group_corr` (K7) on
    the scene's bf16 features at each stage's resolution, C and G (D 64, 16,
-   8; 4 source views): K7 launches, K7 equal to K1 on the same
-   coordinates to the bit, and the winner-take-all depth against the plane.
+   8; 4 source views; `dev.profile_coord.sweep_coords`): K7 launches, K7
+   equal to K1 on the same coordinates to the bit, the winner-take-all
+   depth against the plane, and K7's device ms per stage and per sweep on
+   the sweep's coordinates.
 7. backward-kernel parity: K4 and K5 against their plain versions
    (autograd through the plain forwards) at the training stage shapes of
    640x512, B=2, bf16 and f32 payloads; errors relative to the largest
@@ -87,6 +90,9 @@ EXPECTED_PER_FORWARD = {"warp_group_corr": 4, "warp_group_corr_views": 4,
 SWEEP_DEPTHS = {3: 64, 2: 16, 1: 8}
 # the source views' x baselines of the parity rig (the first is the reference)
 RIG_BASELINES = (0.0, 0.35, -0.35, 0.7, -0.7)
+# K6 beyond a block's chunk of views (csrc/group_corr.cu `kViewChunk`): views,
+# at stage 2's shape
+MANY_VIEWS = 64
 # training geometry (the JAX trainer's DTU configuration)
 TRAIN_H, TRAIN_W, TRAIN_VIEWS, TRAIN_BATCH, TRAIN_SCENE_VIEWS = 512, 640, 5, 2, 12
 TIMED_STEPS = 6
@@ -288,11 +294,12 @@ def kernel_parity(device):
     "device_ms", "bytes", "ops"}} with times and work summed over the
     kernel's launches per pass of its path (bf16 payloads): a forward of the
     main path for K1, K2, K3 and K6, a plane sweep for K7. Fails unless K6
-    equals the per-view route and K7 on the warp coordinates equals K1, to
-    the bit, in bf16 and f32."""
+    equals the per-view route (also with MANY_VIEWS views at stage 2) and
+    K7 on the warp coordinates equals K1, to the bit, in bf16 and f32."""
     import torch
 
     from patchmatchnet_torch import ops
+    from patchmatchnet_torch.dev.profile_coord import rig_mats
     from patchmatchnet_torch.models.patchmatch import (
         STAGE_CONFIG,
         build_offset_grid,
@@ -312,8 +319,8 @@ def kernel_parity(device):
     summary = new_summary(INFERENCE_KERNELS)
     route = {"ms": 0.0, "max_abs_diff": 0.0}  # K6 against the per-view route
     k7_vs_k1 = [0.0]
-    # K1 against K7 on K1's warp coordinates (K7 keeps the thread-per-sample
-    # design), device ms per forward of the main path
+    # K1 against K7 on K1's warp coordinates (one tiled kernel, the cell
+    # warped or read), device ms per forward of the main path
     baseline = {"k1": 0.0, "k7": 0.0}
     # device ms per call of each timed (bf16) case: kernel -> [(label, ms, launches)]
     per_stage = {name: [] for name in INFERENCE_KERNELS}
@@ -372,7 +379,8 @@ def kernel_parity(device):
                     k7_fn = lambda: ops.coord_group_corr(src, ix, iy, ref, g)  # noqa: E731
                     k7_ms, k1_ms, k1_dev, k7_dev = (time_ms(k7_fn), time_ms(k1_fn),
                                                     device_ms(k1_fn), device_ms(k7_fn))
-                    print(f"K1 against K7 on its warp coordinates {label}: K1 {k1_ms:.4f} ms "
+                    print(f"K1 against K7 (tiled, mode kCoords) on K1's warp coordinates "
+                          f"{label}: K1 {k1_ms:.4f} ms "
                           f"device {fmt_ms(k1_dev)}, K7 {k7_ms:.4f} ms device {fmt_ms(k7_dev)} "
                           f"(x{launches}/forward)", flush=True)
                     for key, dev in (("k1", k1_dev), ("k7", k7_dev)):
@@ -404,6 +412,24 @@ def kernel_parity(device):
                        ops.warp_group_corr_views_reference(*args), launches, timed,
                        lambda: ops.warp_group_corr_views(*args),
                        lambda: ops.warp_group_corr_views_reference(*args), cfg.interval_scale)
+            if stage == 2:  # K6 over more views than a block stages at once
+                d = k6_depths[0][0]
+                mats_many = rig_mats(h, w, scale, MANY_VIEWS).to(device)
+                stack_many = torch.randn((1, MANY_VIEWS, h, w, c), generator=gen,
+                                         device=device).to(dtype)
+                vw_many = torch.rand((1, MANY_VIEWS, h, w), generator=gen, device=device)
+                depth = 4.8 + 3.0 * torch.rand((1, d, h, w), generator=gen, device=device)
+                depth[:, -1, :4] = -1.0
+                args = (stack_many, mats_many, depth, ref, vw_many, g)
+                got = ops.warp_group_corr_views(*args)
+                diff = (got - per_view_route(*args)).abs().max().item()
+                route["max_abs_diff"] = max(route["max_abs_diff"], diff)
+                plain = (got - ops.warp_group_corr_views_reference(*args)).abs().max().item()
+                dev = fmt_ms(device_ms(lambda: ops.warp_group_corr_views(*args))) if timed else "-"
+                print(f"warp_group_corr_views stage{stage} C{c} G{g} D{d} V{MANY_VIEWS} {h}x{w} "
+                      f"{tag}: max |K6 - per-view route| {diff:.3e}, max |K6 - plain| {plain:.3e} "
+                      f"(not gated); device {dev}", flush=True)
+                del stack_many, args, got
             args = (ref, grid, g)
             record("neighbor_group_corr", f"stage{stage} C{c} G{g} K9 {h}x{w} {tag}", args,
                    ops.neighbor_group_corr(*args), ops.neighbor_group_corr_reference(*args),
@@ -420,9 +446,10 @@ def kernel_parity(device):
     k6 = summary["warp_group_corr_views"]
     print(f"K6 per forward: {k6['ms']:.4f} ms (device {fmt_ms(k6['device_ms'])}) against the "
           f"per-view route it replaces (16 K1 launches and the weighted sum) {route['ms']:.4f} "
-          f"ms; max |K6 - per-view route| {route['max_abs_diff']:.3e} (bf16 and f32); max "
-          f"|K7 - K1| on the warp coordinates {k7_vs_k1[0]:.3e}; K1 per forward device "
-          f"{fmt_ms(baseline['k1'])}, K7 on its coordinates {fmt_ms(baseline['k7'])}", flush=True)
+          f"ms; max |K6 - per-view route| {route['max_abs_diff']:.3e} (bf16 and f32, 4 and "
+          f"{MANY_VIEWS} views); max |K7 - K1| on the warp coordinates {k7_vs_k1[0]:.3e}; K1 per "
+          f"forward device {fmt_ms(baseline['k1'])}, K7 (tiled) on K1's coordinates "
+          f"{fmt_ms(baseline['k7'])}", flush=True)
     for name in ("warp_group_corr", "warp_group_corr_views", "eval_grid_score",
                  "neighbor_group_corr"):
         print(f"{name} device ms per stage: " + "; ".join(
@@ -556,9 +583,10 @@ def coordinate_path(device, model, scene):
 
     from patchmatchnet_torch import ops
     from patchmatchnet_torch.data import PLANE_Z, BatchLoader, MVSDataset
+    from patchmatchnet_torch.dev.profile_coord import sweep_coords
     from patchmatchnet_torch.models.patchmatch import STAGE_CONFIG
     from patchmatchnet_torch.ops import cuda_build
-    from patchmatchnet_torch.ops.warp import warp_coords, warp_proj_coeffs
+    from patchmatchnet_torch.utils.trace import device_ms, fmt_ms
 
     batch = next(iter(BatchLoader(MVSDataset(scene, MAIN_VIEWS - 1, ".png"), num_threads=1)))
     images, intr, extr, dmin, dmax = [
@@ -571,16 +599,9 @@ def coordinate_path(device, model, scene):
     for stage, d in SWEEP_DEPTHS.items():
         f = feats[stage].permute(0, 2, 3, 1).contiguous()  # [N, h, w, C]
         h, w = f.shape[1:3]
-        k = intr[0].clone()
-        k[:, :2] *= 0.5 ** stage
-        proj = extr[0].clone()
-        proj[:, :3, :4] = k @ extr[0, :, :3, :4]
-        mats = warp_proj_coeffs(proj[1:], proj[:1])  # [N - 1, 12]
-        inv_min, inv_max = 1.0 / dmin[0], 1.0 / dmax[0]
-        steps = (torch.arange(d, device=device) + 0.5) / d
-        hyp = 1.0 / (inv_max + steps * (inv_min - inv_max))  # [D], far to near
-        depth = hyp.reshape(1, d, 1, 1).expand(1, d, h, w).contiguous()
-        coords = [warp_coords(mats[v:v + 1], depth, h, w) for v in range(n - 1)]
+        # mats [N - 1, 12], hyp [D] far to near
+        mats, depth, hyp, coords = sweep_coords(intr[0], extr[0], dmin[0], dmax[0], stage, d,
+                                                h, w)
         cases.append((stage, f, mats, depth, hyp, coords))
 
     cuda_build.reset_launch_counts()
@@ -606,6 +627,16 @@ def coordinate_path(device, model, scene):
             fail(f"K7 on the warp coordinates differs from K1 at stage {stage}")
         if err > 0.05 * PLANE_Z:
             fail(f"plane sweep stage {stage}: median depth error above 5% of the plane")
+    # K7's device ms on the sweep's own coordinates (fronto-parallel planes:
+    # smooth, unlike phase 3's jittered ones), all source views per stage
+    per_stage = [(stage, device_ms(lambda f=f, coords=coords, g=STAGE_CONFIG[stage].groups: [
+        ops.coord_group_corr(f[v + 1:v + 2], ix, iy, f[:1], g)
+        for v, (ix, iy) in enumerate(coords)])) for stage, f, _, _, _, coords in cases]
+    sweep_ms = (None if any(ms is None for _, ms in per_stage)
+                else sum(ms for _, ms in per_stage))
+    print("coord_group_corr device ms on the sweep's coordinates, per stage (x"
+          f"{n - 1} views): " + "; ".join(f"stage{stage} {fmt_ms(ms)}" for stage, ms in per_stage)
+          + f"; per sweep {fmt_ms(sweep_ms)}", flush=True)
     want = len(SWEEP_DEPTHS) * (n - 1)
     print(f"coordinate path launch counts: {counts}", flush=True)
     if counts != {"coord_group_corr": want}:

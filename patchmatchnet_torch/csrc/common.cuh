@@ -49,7 +49,7 @@ struct VecLoad<__nv_bfloat16> {
   }
 };
 
-// The lane layout of the tiled kernels (K1, K3, K6 in group_corr.cu; K5 in
+// The lane layout of the tiled kernels (K1, K3, K6, K7 in group_corr.cu; K5 in
 // group_corr_bwd.cu) for a (payload, C, G) instantiation: a lane owns
 // KC consecutive channels (whole 16-byte vectors and whole groups), L lanes
 // hold one sample, and a block of kThreads holds TX reference pixels.
@@ -181,7 +181,7 @@ struct Corners {
 // channel i into its group sum acc[i / CG], in channel order; acc points at
 // the sum of the group that holds channel c. Every sample of K1, K3, K6 and
 // K7 is reduced through these two steps, with explicit roundings, so the
-// thread-per-sample kernel and the tiled kernel compute the same bits.
+// four compute the same bits for the same cell.
 template <typename T, int C>
 __device__ __forceinline__ void load_taps(const Corners<T, C>& corner, int c, const Taps& taps,
                                           uint4 (&raw)[4]) {
@@ -206,29 +206,6 @@ __device__ __forceinline__ void correlate_taps(const uint4 (&raw)[4], const Taps
   }
 #pragma unroll
   for (int i = 0; i < N; ++i) acc[i / CG] = __fmaf_rn(warped[i], rv[i], acc[i / CG]);
-}
-
-// Group sums of one sample: the bilinear tap of the [Hs, Ws, C] map `base`
-// at the cell `taps`, times the reference pixel `r` [C], summed over the
-// C / G channels of each group into acc[G] (not yet divided by C / G), one
-// `load_taps` and `correlate_taps` step per 16-byte vector.
-template <typename T, int C, int G>
-__device__ __forceinline__ void group_sums(const T* base, int Ws, const Taps& taps,
-                                           const T* r, float (&acc)[G]) {
-  constexpr int N = VecLoad<T>::N;
-  constexpr int CG = C / G;
-  static_assert(C % N == 0 && C % G == 0 && (N % CG == 0 || CG % N == 0), "channel layout");
-  const Corners<T, C> corner(base, (long long)taps.y0 * Ws + taps.x0, Ws);
-#pragma unroll
-  for (int g = 0; g < G; ++g) acc[g] = 0.0f;
-#pragma unroll
-  for (int c = 0; c < C; c += N) {
-    float rv[N];
-    uint4 raw[4];
-    VecLoad<T>::load(r + c, rv);
-    load_taps<T, C>(corner, c, taps, raw);
-    correlate_taps<T, CG>(raw, taps, rv, acc + c / CG);
-  }
 }
 
 inline unsigned int num_blocks(long long total) {

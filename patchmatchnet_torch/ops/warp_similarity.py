@@ -252,9 +252,10 @@ def coord_group_corr(
 
     Replaces `windowed_similarity.py` `_kernel` (API
     `windowed_group_similarity`). The CUDA kernel is `csrc/group_corr.cu`
-    (`pmn_coord_group_corr`); it picks a sample's cell with the code K1
-    uses after its warp, so `coord_group_corr(src, *warp_coords(...), ref,
-    g)` equals `warp_group_corr(src, mat12, depth, ref, g)`.
+    (`pmn_coord_group_corr`): K1's tiled kernel reading the coordinates
+    where K1 warps, with the cell picked by the code K1 runs after its warp,
+    so `coord_group_corr(src, *warp_coords(...), ref, g)` equals
+    `warp_group_corr(src, mat12, depth, ref, g)` to the bit.
 
     Args:
         src: [B, Hs, Ws, C] source features (bf16 or f32).
@@ -318,9 +319,9 @@ def warp_group_corr_views(
     Replaces `windowed_similarity.py` `_kernel_proj_views` (API
     `windowed_group_similarity_proj_views`). The CUDA kernel is
     `csrc/group_corr.cu` (`pmn_warp_group_corr_views`, K1's tiled kernel
-    with the views looped inside each lane); it rounds like the per-view
-    route (K1 per view, `sim * vw`, then the sum in view order), so the two
-    agree to the bit.
+    with the views looped inside each lane, staged 16 at a time, so any
+    number of views); it rounds like the per-view route (K1 per view,
+    `sim * vw`, then the sum in view order), so the two agree to the bit.
 
     Args:
         src: [B, V, Hs, Ws, C] stacked source-view features (bf16 or f32).

@@ -102,17 +102,16 @@ def kernel_kind(name: str) -> str:
 
 
 # Hand kernels by their device function (csrc/) and, for the tiled kernel,
-# its `Samples` mode, the last template argument: 0 K1, 1 K6, 2 K3.
+# its `Samples` mode, the fourth template argument: 0 K1, 1 K6, 2 K3, 3 K7.
 _HAND_KERNELS = {
     "eval_grid_score_kernel": "K2",
-    "group_corr_kernel": "K7",
     "warp_corr_bwd_merge_kernel": "K4",
     "neighbor_corr_bwd_tile_kernel": "K5",
     "gather_lanes_kernel": "D1-D3",
     "gather_sublanes_kernel": "D4",
     "gather_rows_kernel": "D5",
 }
-_TILE_MODES = {"0": "K1", "1": "K6", "2": "K3"}
+_TILE_MODES = {"0": "K1", "1": "K6", "2": "K3", "3": "K7"}
 
 
 def hand_kernel_id(name: str) -> Optional[str]:

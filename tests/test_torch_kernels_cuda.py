@@ -348,17 +348,24 @@ def test_model_f32_on_card_matches_cpu(device):
     assert diff.mean() < 2e-4 and diff.median() < 1e-5, (diff.mean(), diff.median())
 
 
+def _baseline(v):
+    """(x, y) baseline of source view v: +-0.35, +-0.7, +-1.05, +-1.4 in x,
+    and 0.2 higher in y for each 8 views before it."""
+    return 0.35 * ((v // 2) % 4 + 1) * (1 if v % 2 == 0 else -1), 0.2 * (v // 8)
+
+
 def _views_case(device, b, c, d, h, w, dtype, views=4, seed=3, where="mixed"):
-    """A rig of `views` sources at x baselines +-0.35, +-0.7 around the
-    reference, stacked [B, V, h, w, C] features, depth hypotheses as
-    `_hypotheses` makes them, and per-pixel view weights."""
+    """A rig of `views` sources around the reference (`_baseline`: x
+    baselines +-0.35, +-0.7 for the first 4), stacked [B, V, h, w, C]
+    features, depth hypotheses as `_hypotheses` makes them, and per-pixel
+    view weights."""
     gen = torch.Generator(device=device).manual_seed(seed)
     f = 1.1 * max(h, w)
     k = torch.tensor([[f, 0, w / 2.0], [0, f, h / 2.0], [0, 0, 1]])
     projs = []
-    for tx in (0.0, 0.35, -0.35, 0.7, -0.7)[:views + 1]:
+    for tx, ty in [(0.0, 0.0)] + [_baseline(v) for v in range(views)]:
         p = torch.eye(4)
-        p[:3, :4] = k @ torch.tensor([[1.0, 0, 0, tx], [0, 1, 0, 0], [0, 0, 1, 0]])
+        p[:3, :4] = k @ torch.tensor([[1.0, 0, 0, tx], [0, 1, 0, ty], [0, 0, 1, 0]])
         projs.append(p)
     projs = torch.stack(projs)[None].expand(b, -1, -1, -1)
     mats = warp_proj_coeffs(projs[:, 1:], projs[:, :1]).to(device).contiguous()
@@ -374,15 +381,17 @@ def _views_case(device, b, c, d, h, w, dtype, views=4, seed=3, where="mixed"):
 @pytest.mark.parametrize("c,g", [(16, 4), (32, 8), (64, 8)])
 @pytest.mark.parametrize("b,d,h,w,views,where", [
     (1, 6, 20, 36, 4, "mixed"), (2, 5, 13, 17, 4, "mixed"), (1, 1, 1, 7, 1, "mixed"),
-    (2, 11, 9, 40, 1, "mixed"), (1, 6, 20, 36, 4, "behind"), (1, 6, 20, 36, 4, "off")])
+    (2, 11, 9, 40, 1, "mixed"), (1, 6, 20, 36, 4, "behind"), (1, 6, 20, 36, 4, "off"),
+    (1, 6, 20, 36, 51, "mixed"), (2, 5, 13, 17, 64, "mixed")])
 def test_views_kernel_matches_plain_and_per_view_route(device, dtype, c, g, b, d, h, w, views,
                                                        where):
-    """K6 vs its plain version (twice K1's bound: a sum of up to 4 views
-    with weights below 1) and, to the bit, vs the per-view route it
-    replaces: K1 per view, times the weights, summed in view order as
-    `Evaluation` does; one launch counted. The cases cover the tiled
-    kernel's ragged pixel tiles and hypothesis chunks, H = 1, D = 1, B = 2,
-    V = 1 and 4, and samples all behind the cameras or all off the image."""
+    """K6 vs its plain version (1e-4 per view, at least 4e-4: twice K1's
+    bound for a sum of up to 4 views with weights below 1) and, to the bit,
+    vs the per-view route it replaces: K1 per view, times the weights,
+    summed in view order as `Evaluation` does; one launch counted. The
+    cases cover the tiled kernel's ragged pixel tiles and hypothesis chunks,
+    H = 1, D = 1, B = 2, V = 1 and 4, V = 51 and 64 (several chunks of
+    views), and samples all behind the cameras or all off the image."""
     src, mats, depth, ref, vw = _views_case(device, b, c, d, h, w, dtype, views=views,
                                             where=where)
     before = cuda_build.launch_counts()
@@ -390,7 +399,7 @@ def test_views_kernel_matches_plain_and_per_view_route(device, dtype, c, g, b, d
     after = cuda_build.launch_counts()
     assert after.get("warp_group_corr_views", 0) == before.get("warp_group_corr_views", 0) + 1
     want = ops.warp_group_corr_views_reference(src, mats, depth, ref, vw, g)
-    torch.testing.assert_close(got, want, rtol=0, atol=4e-4)
+    torch.testing.assert_close(got, want, rtol=0, atol=1e-4 * max(views, 4))
     route = torch.zeros_like(got)
     for v in range(src.shape[1]):
         sim = ops.warp_group_corr(src[:, v].contiguous(), mats[:, v].contiguous(), depth, ref, g)
@@ -402,10 +411,10 @@ def test_views_kernel_matches_plain_and_per_view_route(device, dtype, c, g, b, d
 @pytest.mark.parametrize("c,g", [(16, 4), (32, 8), (64, 8)])
 @pytest.mark.parametrize("b,d,h,w,where", WARP_CASES)
 def test_coord_kernel_matches_plain_and_warp_kernel(device, dtype, c, g, b, d, h, w, where):
-    """K7 (thread per sample) on the warp coordinates equals K1 (tiled) to
-    the bit at each of WARP_CASES; on jittered coordinates (off the image
-    too) it is within K1's bound of its plain version; one launch counted
-    per call."""
+    """K7 (the tiled kernel reading the coordinates) on the warp
+    coordinates equals K1 (the tiled kernel warping) to the bit at each of
+    WARP_CASES; on jittered coordinates (off the image too) it is within
+    K1's bound of its plain version; one launch counted per call."""
     src, ref, mat12, depth, _, gen = _case(device, c, d, h, w, dtype, b=b, where=where)
     from patchmatchnet_torch.ops.warp import warp_coords
 
@@ -417,6 +426,28 @@ def test_coord_kernel_matches_plain_and_warp_kernel(device, dtype, c, g, b, d, h
     assert torch.equal(got, ops.warp_group_corr(src, mat12, depth, ref, g))
     jx = ix + 3.0 * torch.randn(ix.shape, generator=gen, device=device)
     jy = iy + 3.0 * torch.randn(iy.shape, generator=gen, device=device)
+    torch.testing.assert_close(ops.coord_group_corr(src, jx, jy, ref, g),
+                               ops.coord_group_corr_reference(src, jx, jy, ref, g),
+                               rtol=0, atol=2e-4)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("c,g", [(16, 4), (32, 8), (64, 8)])
+@pytest.mark.parametrize("hs,ws", [(31, 45), (7, 11)])
+def test_coord_kernel_on_a_source_of_another_size(device, dtype, c, g, hs, ws):
+    """K7 and K1 with a source map larger or smaller than the 20 x 36
+    reference grid: equal to the bit on the warp coordinates, and K7 within
+    K1's bound of its plain version on coordinates spread over and past the
+    source (many corners off it)."""
+    src, ref, mat12, depth, _, gen = _case(device, c, 6, 20, 36, dtype)
+    src = torch.randn((1, hs, ws, c), generator=gen, device=device).to(dtype)
+    from patchmatchnet_torch.ops.warp import warp_coords
+
+    ix, iy = warp_coords(mat12, depth, hs, ws)
+    assert torch.equal(ops.coord_group_corr(src, ix, iy, ref, g),
+                       ops.warp_group_corr(src, mat12, depth, ref, g))
+    jx = (ws + 4) * torch.rand(ix.shape, generator=gen, device=device) - 2
+    jy = (hs + 4) * torch.rand(iy.shape, generator=gen, device=device) - 2
     torch.testing.assert_close(ops.coord_group_corr(src, jx, jy, ref, g),
                                ops.coord_group_corr_reference(src, jx, jy, ref, g),
                                rtol=0, atol=2e-4)

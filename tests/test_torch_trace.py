@@ -68,8 +68,11 @@ def test_kernel_kind(name, kind):
 @pytest.mark.parametrize("name,kid", [
     ("void pmn::group_corr_tile_kernel<__nv_bfloat16, 64, 8, (pmn::Samples)0>(const T1 *)", "K1"),
     ("void pmn::group_corr_tile_kernel<float, 32, 8, (pmn::Samples)1>(const T1 *)", "K6"),
+    ("void pmn::group_corr_tile_kernel<__nv_bfloat16, 16, 4, (pmn::Samples)1, true>(const T1 *)",
+     "K6"),
     ("void pmn::group_corr_tile_kernel<__nv_bfloat16, 16, 4, (pmn::Samples)2>(const T1 *)", "K3"),
-    ("void pmn::group_corr_kernel<__nv_bfloat16, 64, 8>(const T1 *, const T1 *)", "K7"),
+    ("void pmn::group_corr_tile_kernel<__nv_bfloat16, 64, 8, (pmn::Samples)3>(const T1 *)", "K7"),
+    ("void pmn::group_corr_tile_kernel<float, 16, 4, (pmn::Samples)3>(const T1 *)", "K7"),
     ("void pmn::eval_grid_score_kernel<__nv_bfloat16, 8>(const float *)", "K2"),
     ("void pmn::warp_corr_bwd_merge_kernel<__nv_bfloat16, 64, 8>(const T1 *)", "K4"),
     ("void pmn::neighbor_corr_bwd_tile_kernel<float, 16, 4>(const T1 *)", "K5"),

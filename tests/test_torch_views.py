@@ -67,21 +67,18 @@ def _gm(c, g):
     return jnp.asarray(group_mean_matrix(c, g).numpy())
 
 
-@pytest.mark.parametrize("payload", PAYLOADS)
-@pytest.mark.parametrize("c,g", [(16, 4), (32, 8), (64, 8)])
-def test_views_reference_matches_jax_views(payload, c, g):
-    """Plain K6 vs the JAX views-fused entry on the fixture of
-    test_windowed_similarity.py::test_views_fused_matches_per_view_weighted_sum,
-    with every view escape-free."""
+def _views_against_jax(payload, c, g, v, h, w, d, shifts):
+    """Plain K6 vs the JAX views-fused entry on `v` views of a seeded
+    [1, v, h, w, c] stack, view i warped by the translation shifts(i) (px
+    per unit depth), with every view escape-free; tolerance 1e-5."""
     rng = np.random.default_rng(7)
-    b, v, h, w, d = 1, 3, 32, 48, 8
+    b = 1
     feats = rng.random((b, v, h, w, c), np.float32)
     ref = rng.random((b, h, w, c), np.float32)
     mats = np.zeros((b, v, 12), np.float32)
     for i in range(v):
         mats[:, i, 0] = mats[:, i, 5] = mats[:, i, 10] = 1.0
-        mats[:, i, 3] = 0.3 * i
-        mats[:, i, 7] = 0.2 * (i - 1)
+        mats[:, i, 3], mats[:, i, 7] = shifts(i)
     depth = (rng.random((b, d, h, w)) * 2 + 4).astype(np.float32)
     vw = rng.random((b, v, h, w)).astype(np.float32)
     cfg = make_config(h, w)
@@ -98,6 +95,74 @@ def test_views_reference_matches_jax_views(payload, c, g):
                                 ref_t, torch.from_numpy(vw), g)
     assert got.shape == (b, g, d, h, w) and got.dtype == torch.float32
     np.testing.assert_allclose(got.numpy(), want, rtol=1e-5, atol=1e-5)
+
+
+@pytest.mark.parametrize("payload", PAYLOADS)
+@pytest.mark.parametrize("c,g", [(16, 4), (32, 8), (64, 8)])
+def test_views_reference_matches_jax_views(payload, c, g):
+    """Plain K6 vs the JAX views-fused entry on the fixture of
+    test_windowed_similarity.py::test_views_fused_matches_per_view_weighted_sum,
+    with every view escape-free."""
+    _views_against_jax(payload, c, g, 3, 32, 48, 8, lambda i: (0.3 * i, 0.2 * (i - 1)))
+
+
+@pytest.mark.parametrize("payload", PAYLOADS)
+@pytest.mark.parametrize("c,g", [(16, 4), (32, 8), (64, 8)])
+def test_views_reference_matches_jax_views_at_51_views(payload, c, g):
+    """Plain K6 at 51 views (more than the card kernel stages at once, and
+    past the 50 its bf16 stage-1 block once fit in shared memory) vs the
+    JAX views-fused entry, whose views are a grid axis with no limit; every
+    view escape-free."""
+    _views_against_jax(payload, c, g, 51, 16, 24, 4,
+                       lambda i: (0.3 * (i % 5 - 2), 0.2 * (i // 5 % 3 - 1)))
+
+
+@pytest.mark.parametrize("stage", [3, 2, 1])
+def test_sweep_coords_are_the_jax_warp_of_fronto_parallel_planes(stage):
+    """`dev.profile_coord.sweep_coords` (the coordinates of chip_smoke.py's
+    plane sweep) on the synthetic scene's cameras: the JAX warp of the same
+    projections and planes, planes far to near, and on a rig with identity
+    rotations a shift of f * baseline / depth along x alone."""
+    from patchmatchnet_torch.dev.profile_coord import sweep_coords
+
+    n, height, width, d = 5, 64, 96, 6
+    f = 1.1 * max(height, width)
+    intr = torch.tensor([[f, 0, width / 2.0], [0, f, height / 2.0], [0, 0, 1]]).expand(n, 3, 3)
+    extr = torch.eye(4).repeat(n, 1, 1)
+    extr[:, 0, 3] = 0.35 * (torch.arange(n) - (n - 1) / 2.0)
+    h, w = height >> stage, width >> stage
+    mats, depth, hyp, coords = sweep_coords(intr, extr, torch.tensor(4.8), torch.tensor(7.8),
+                                            stage, d, h, w)
+    assert mats.shape == (n - 1, 12) and depth.shape == (1, d, h, w) and len(coords) == n - 1
+    assert (hyp.diff() < 0).all() and 4.8 < hyp.min() and hyp.max() < 7.8
+    xx = torch.arange(w, dtype=torch.float32).expand(h, w)
+    for v, (ix, iy) in enumerate(coords):
+        jx, jy = _coords_from_depth(jnp.asarray(mats[v:v + 1].numpy()), jnp.asarray(depth.numpy()),
+                                    h, w)
+        np.testing.assert_allclose(ix.numpy(), np.asarray(jx), rtol=0, atol=1e-4)
+        np.testing.assert_allclose(iy.numpy(), np.asarray(jy), rtol=0, atol=1e-4)
+        shift = (f / 2 ** stage) * 0.35 * (v + 1) / hyp
+        np.testing.assert_allclose((ix[0] - xx).numpy(), shift[:, None, None].expand(d, h, w),
+                                   rtol=1e-5, atol=1e-4)
+        np.testing.assert_allclose(iy[0].numpy(), torch.arange(h, dtype=torch.float32)[:, None]
+                                   .expand(d, h, w).numpy(), rtol=0, atol=1e-4)
+
+
+def test_profile_coord_inputs_do_not_depend_on_the_cases_run_before(monkeypatch):
+    """`dev.profile_coord` seeds each case's inputs on its own, so a run
+    that adds K6 cases with more views (which a tree whose K6 takes at most
+    50 views leaves out) gives every other case the same inputs and outputs
+    (plain versions on the CPU, a 64x48 scene)."""
+    from patchmatchnet_torch.dev import profile_coord
+
+    monkeypatch.setattr(profile_coord, "H", 48)
+    monkeypatch.setattr(profile_coord, "W", 64)
+    runs = [{f"{kid} {layout} {label}": fns["f32"]()
+             for kid, layout, label, _, fns in profile_coord.cases(torch.device("cpu"), views)}
+            for views in ([4], [4, 20])]
+    assert set(runs[1]) - set(runs[0]) == {"K6 V20 stage2 C32 G8 D16 12x16"}
+    for key, outs in runs[0].items():
+        assert all(torch.equal(a, b) for a, b in zip(outs, runs[1][key])), key
 
 
 def _coord_fixture(seed, h, w, d, edit=None):
