@@ -62,6 +62,19 @@ result line:
    and bound ms (CUDA events around batches of calls), and the kernel's and
    `torch.gather`'s device time from a profiler trace; launches counted
    per section.
+11. reconstruction path: an 11-view 1152x864 synthetic scan whose pair.txt
+   gives each reference its 10 sources best first (as DTU's): the bf16
+   DepthEstimator (1 + 4 views per map) writes COLMAP .bin depth and
+   confidence maps through save_depth_maps (launches 4/4/5/3 per map), and
+   filter_and_fuse (FusionConfig defaults) fuses them on the card into
+   fused.ply, once to warm up and once timed; prints each view's mask
+   shares, the point count, fusion ms per reference view split into reads,
+   consistency, mask PNGs, backprojection and the PLY write, and peak
+   memory. Fails unless the PLY has points whose median |z - plane| is
+   within 5% of the plane depth, and, for two reference views, the card's
+   per-pixel consistent-view counts and final mask differ from the CPU's at
+   most at 0.1% of the pixels and the fused points of pixels in both final
+   masks agree within 1e-4 relative.
 
 The last line is {"ok": true, "device": {...}}; the line before it holds
 the per-kernel JSON summary.
@@ -88,6 +101,11 @@ EXPECTED_PER_FORWARD = {"warp_group_corr": 4, "warp_group_corr_views": 4,
                         "eval_grid_score": 5, "neighbor_group_corr": 3}
 # plane sweep of the coordinate-input path: stage -> hypotheses
 SWEEP_DEPTHS = {3: 64, 2: 16, 1: 8}
+# reconstruction path: an 11-view scan (each reference with 10 sources, as
+# DTU's pair.txt), and the reference views whose fusion is held against the
+# CPU's (the middle view and an end view)
+RECON_VIEWS = 11
+FUSION_CHECK_VIEWS = (5, 0)
 # the source views' x baselines of the parity rig (the first is the reference)
 RIG_BASELINES = (0.0, 0.35, -0.35, 0.7, -0.7)
 # K6 beyond a block's chunk of views (csrc/group_corr.cu `kViewChunk`): views,
@@ -1053,6 +1071,135 @@ def gather_phase(device):
     return entries
 
 
+def reconstruction_path(device, state_dict, scene, smi):
+    """Phase 11: an 11-view scan from images to a fused, coloured PLY. The
+    bf16 DepthEstimator writes every view's depth and confidence maps as
+    COLMAP .bin (1 + 4 views per map, as phase 5); `filter_and_fuse` fuses
+    them on the card, each reference with 10 sources, twice (the first run
+    warms up, the second is timed and checked). Then, for FUSION_CHECK_VIEWS,
+    the consistency of the reference with its sources and the backprojected
+    points on the card against the same on the CPU."""
+    import numpy as np
+    import torch
+    from PIL import Image
+
+    from patchmatchnet_torch.data import (
+        PLANE_Z,
+        BatchLoader,
+        MVSDataset,
+        make_synthetic_scene,
+        read_cam_file,
+        read_map,
+        read_pair_file,
+        read_ply,
+        save_pair_file,
+    )
+    from patchmatchnet_torch.geometry import backproject_to_world
+    from patchmatchnet_torch.infer import DepthEstimator, FusionConfig, save_depth_maps
+    from patchmatchnet_torch.infer.fusion import consistency_all_sources, filter_and_fuse
+    from patchmatchnet_torch.models import PatchmatchNet
+    from patchmatchnet_torch.ops import cuda_build
+
+    make_synthetic_scene(scene, num_views=RECON_VIEWS, height=MAIN_H, width=MAIN_W,
+                         texture_scale=8.0)
+    # sources best first (score 10 - |s - v|), as DTU's pair.txt lists them
+    pairs = read_pair_file(os.path.join(scene, "pair.txt"))
+    save_pair_file(os.path.join(scene, "pair.txt"),
+                   [(v, [(s, 10.0 - abs(s - v)) for s in sorted(srcs, key=lambda s: abs(s - v))])
+                    for v, srcs in pairs])
+    pairs = dict(read_pair_file(os.path.join(scene, "pair.txt")))
+
+    model = PatchmatchNet(compute_dtype=torch.bfloat16)
+    model.load_state_dict(state_dict, strict=True)
+    estimator = DepthEstimator(model, device=device)
+    dataset = MVSDataset(scene, num_views=MAIN_VIEWS - 1, image_extension=".png")
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(device)
+    start = time.perf_counter()
+    cuda_build.reset_launch_counts()
+    written = save_depth_maps(estimator, BatchLoader(dataset, batch_size=1), scene, seed=0,
+                              file_format=".bin")
+    counts = cuda_build.launch_counts()
+    maps_s = time.perf_counter() - start
+    maps_peak = torch.cuda.max_memory_allocated(device)
+    del estimator, model
+    torch.cuda.empty_cache()
+    print(f"depth maps: {written} of {RECON_VIEWS} views as .bin in {maps_s:.2f} s, peak "
+          f"memory {maps_peak / 2**20:.1f} MiB; launch counts: {counts}", flush=True)
+    if written != RECON_VIEWS:
+        fail(f"wrote {written} depth maps, expected {RECON_VIEWS}")
+    if counts != {name: per * RECON_VIEWS for name, per in EXPECTED_PER_FORWARD.items()}:
+        fail(f"depth maps launched {counts}, expected {EXPECTED_PER_FORWARD} x {RECON_VIEWS}")
+
+    cfg = FusionConfig(file_format=".bin", image_extension=".png")
+    runs = []
+    for timed in (False, True):  # the second run overwrites the first's outputs
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats(device)
+        held = torch.cuda.memory_allocated(device)
+        timings = {}
+        start = time.perf_counter()
+        ply = filter_and_fuse(scene, scene, "", cfg, verbose=timed, device=device,
+                              timings=timings)
+        runs.append((ply, time.perf_counter() - start, timings,
+                     torch.cuda.max_memory_allocated(device) - held))
+    ply, total_s, timings, fusion_peak = runs[-1]
+    per_view = {k: v * 1e3 / RECON_VIEWS for k, v in timings.items()}
+    print(f"fusion on the card, {RECON_VIEWS} reference views x {len(pairs[0])} sources, "
+          f"{MAIN_W}x{MAIN_H}: {total_s * 1e3 / RECON_VIEWS:.2f} ms per reference view "
+          f"(warm-up run {runs[0][1] * 1e3 / RECON_VIEWS:.2f}); host ms per view: "
+          + ", ".join(f"{k} {v:.2f}" for k, v in per_view.items())
+          + f"; peak memory {fusion_peak / 2**20:.1f} MiB above what the process held "
+          f"before (depth maps: peak {maps_peak / 2**20:.1f} MiB); card {smi}", flush=True)
+
+    xyz, _ = read_ply(ply)
+    if xyz.shape[0] == 0 or not np.isfinite(xyz).all():
+        fail(f"fused.ply holds {xyz.shape[0]} points (finite {np.isfinite(xyz).all()})")
+    z_err = float(np.median(np.abs(xyz[:, 2] - PLANE_Z)))
+    print(f"fused points {xyz.shape[0]} ({xyz.shape[0] / (RECON_VIEWS * MAIN_H * MAIN_W):.4f} "
+          f"of the pixels); median |z - plane| {z_err:.4f} (plane at {PLANE_Z})", flush=True)
+    if z_err > 0.05 * PLANE_Z:
+        fail(f"fused points: median |z - plane| {z_err:.4f} above 5% of the plane depth")
+
+    # the card against the CPU on the same maps, for FUSION_CHECK_VIEWS
+    finals = {v: np.asarray(Image.open(os.path.join(scene, "mask", f"{v:08d}_final.png"))) > 0
+              for v in pairs}
+    offsets = dict(zip(pairs, np.cumsum([0] + [f.sum() for f in finals.values()])))
+
+    def load(v, folder):
+        return torch.from_numpy(read_map(os.path.join(scene, folder, f"{v:08d}.bin"))[..., 0])
+
+    for ref in FUSION_CHECK_VIEWS:
+        cams = {v: [torch.from_numpy(a) for a in read_cam_file(
+            os.path.join(scene, "cams", f"{v:08d}_cam.txt"))[:2]] for v in [ref] + pairs[ref]}
+        photo = load(ref, "confidence") > cfg.photo_thres
+        res = []
+        for dev in (device, torch.device("cpu")):
+            ref_depth = load(ref, "depth_est").to(dev)
+            geo_sum, reproj_sum = consistency_all_sources(
+                ref_depth, *cams[ref],
+                torch.stack([load(s, "depth_est") for s in pairs[ref]]).to(dev),
+                torch.stack([cams[s][0] for s in pairs[ref]]),
+                torch.stack([cams[s][1] for s in pairs[ref]]),
+                cfg.geo_pixel_thres, cfg.geo_depth_thres)
+            final = (geo_sum >= cfg.geo_mask_thres) & photo.to(dev)
+            world = backproject_to_world((reproj_sum + ref_depth) / (geo_sum + 1), *cams[ref])
+            res.append((geo_sum.cpu().numpy(), final.cpu().numpy(), world.cpu().numpy()))
+        (g_sum, g_final, _), (c_sum, c_final, c_world) = res
+        sum_diff, final_diff = (g_sum != c_sum).mean(), (g_final != c_final).mean()
+        both = g_final & c_final
+        fused = xyz[offsets[ref]:offsets[ref] + g_final.sum()]
+        rel = (np.linalg.norm(fused[both[g_final]] - c_world[both], axis=1)
+               / np.linalg.norm(c_world[both], axis=1))
+        print(f"ref view {ref}: card vs CPU geo_sum differs at {sum_diff:.2e} and the final "
+              f"mask at {final_diff:.2e} of the pixels; fused points of {both.sum()} pixels in "
+              f"both final masks, max relative difference {rel.max():.2e}", flush=True)
+        if not np.array_equal(g_final, finals[ref]):
+            fail(f"ref view {ref}: the card's final mask differs from its fusion run's")
+        if sum_diff > 1e-3 or final_diff > 1e-3 or both.sum() == 0 or rel.max() > 1e-4:
+            fail(f"ref view {ref}: card and CPU fusion disagree")
+
+
 def main() -> int:
     if not os.path.isdir(os.path.join(REPO, "patchmatchnet_torch")):
         fail("run from a checkout of the repository (patchmatchnet_torch/ not found)")
@@ -1135,6 +1282,14 @@ def main() -> int:
 
     phase("gather microbenchmarks (D1-D5) on the card")
     gather_entries = gather_phase(device)
+
+    phase(f"reconstruction path: {RECON_VIEWS}-view scan at {MAIN_W}x{MAIN_H}, .bin depth "
+          f"maps, filter_and_fuse on the card")
+    scene = tempfile.mkdtemp(prefix="smoke_recon_", dir=os.path.join(REPO, "build"))
+    try:
+        reconstruction_path(device, state_dict, scene, smi)
+    finally:
+        shutil.rmtree(scene, ignore_errors=True)
 
     kernels = []
     for name, (src, replaces) in KERNEL_INFO.items():

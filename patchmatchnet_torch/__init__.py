@@ -15,11 +15,16 @@ Layout:
   `eval_tail` K2, `gather` the gathers D1-D5), each with a plain PyTorch
   twin used for CPU tensors; `cuda_build` builds `csrc/` with nvcc.
 - `dev.bench_gather`: the gather microbenchmarks on the card.
-- `infer.depth`: `DepthEstimator` and `save_depth_maps`.
+- `infer.depth`: `DepthEstimator` and `save_depth_maps` (.pfm or .bin).
+- `infer.fusion`: `filter_and_fuse`, depth maps to a fused, coloured PLY
+  on the card, over `geometry.fusion_math` (consistency batched over a
+  reference's source views).
+- `eval_protocols.dtu`: the DTU evaluation protocol (numpy/scipy).
 - `train`: train/eval steps, Adam + MultiStep, checkpoints and the epoch
   driver `run_training` (configured by `config.Config`).
-- `data`: file codecs, the MVS scene dataset and batch loader, and a
-  synthetic scene with known depth.
+- `data`: file codecs (images, cams, pairs, PFM and COLMAP .bin maps, PLY),
+  the MVS scene dataset and batch loader, and a synthetic scene with known
+  depth.
 - `utils`: depth metrics and the JSONL/TensorBoard metrics logger.
 """
 

@@ -1,6 +1,7 @@
 """File codecs of the unified MVS layout on numpy + PIL: images, `*_cam.txt`,
-`pair.txt` and PFM maps, in the formats `patchmatchnet_tpu/dataio` reads
-and writes (MVSNet/PatchmatchNet convention)."""
+`pair.txt`, PFM and COLMAP `.bin` maps and binary PLY point clouds, in the
+formats `patchmatchnet_tpu/dataio` reads and writes (MVSNet/PatchmatchNet
+convention), and the shrink of images and maps to a longest side."""
 
 from __future__ import annotations
 
@@ -8,19 +9,67 @@ import os
 from typing import List, Sequence, Tuple
 
 import numpy as np
+import torch
+import torch.nn.functional as F
 from PIL import Image
 
 
-def read_image(path: str) -> np.ndarray:
-    """Image as [H, W, 3] float32 in [0, 1] (grey images repeated to RGB)."""
+def resize_images(images: np.ndarray, height: int, width: int) -> np.ndarray:
+    """[N, H, W, C] float32 -> [N, height, width, C], bilinear with
+    half-pixel centers (cv2.INTER_LINEAR convention)."""
+    nchw = torch.from_numpy(np.ascontiguousarray(images)).permute(0, 3, 1, 2)
+    out = F.interpolate(nchw, size=(height, width), mode="bilinear", align_corners=False)
+    return out.permute(0, 2, 3, 1).contiguous().numpy()
+
+
+def scaled_dims(height: int, width: int, max_dim: int) -> Tuple[int, int]:
+    """The (H, W) that `scale_to_max_dim` gives an H x W image, without it."""
+    scale = max_dim / max(height, width)
+    if 0 < scale < 1:
+        return int(scale * height), int(scale * width)
+    return height, width
+
+
+def scale_to_max_dim(image: np.ndarray, max_dim: int) -> Tuple[np.ndarray, int, int]:
+    """Shrink [H, W, C] so max(H, W) <= max_dim (never grows; max_dim <= 0
+    keeps it). Returns (image, original height, original width)."""
+    height, width = image.shape[:2]
+    new_h, new_w = scaled_dims(height, width, max_dim)
+    if (new_h, new_w) != (height, width):
+        image = resize_images(image[None], new_h, new_w)[0]
+    return image, height, width
+
+
+def read_image(path: str, max_dim: int = -1) -> np.ndarray:
+    """Image as [H, W, 3] float32 in [0, 1] (grey images repeated to RGB),
+    shrunk so max(H, W) <= max_dim. 8-bit levels decode as x * f32(1/255),
+    the JAX package's native decode, to the bit."""
     with Image.open(path) as im:
-        image = np.asarray(im).astype(np.float32) / 255.0
-    return np.repeat(image[:, :, None], 3, axis=2) if image.ndim == 2 else image
+        raw = np.asarray(im)
+    if raw.dtype == np.uint8:
+        image = raw.astype(np.float32) * np.float32(1 / 255)
+    else:
+        image = raw.astype(np.float32) / np.float32(255)
+    if image.ndim == 2:
+        image = np.repeat(image[:, :, None], 3, axis=2)
+    return scale_to_max_dim(image, max_dim)[0]
+
+
+def read_image_size(path: str) -> Tuple[int, int]:
+    """(height, width) of an image from its header, without decoding it."""
+    with Image.open(path) as im:
+        width, height = im.size
+    return height, width
 
 
 def save_image(path: str, image: np.ndarray) -> None:
-    """Save a float image in [0, 1] as 8-bit."""
-    Image.fromarray((image * 255).astype(np.uint8)).save(path)
+    """Save an image as 8-bit: bool masks as 0/255, floats in [0, 1] as
+    (x * 255) truncated."""
+    if image.dtype == bool:
+        image = image.astype(np.uint8) * 255
+    else:
+        image = (image * 255).astype(np.uint8)
+    Image.fromarray(image).save(path)
 
 
 def read_cam_file(path: str) -> Tuple[np.ndarray, np.ndarray, np.ndarray]:
@@ -94,3 +143,117 @@ def save_pfm(path: str, depth_map: np.ndarray) -> None:
     with open(path, "wb") as f:
         f.write(f"Pf\n{depth_map.shape[1]} {depth_map.shape[0]}\n-1.000000\n".encode())
         np.flipud(depth_map).astype("<f4").tofile(f)
+
+
+def read_bin(path: str) -> np.ndarray:
+    """COLMAP dense map as [H, W, C] float32: an ASCII "W&H&C&" header, then
+    float32 data in Fortran order over (W, H, C)."""
+    with open(path, "rb") as f:
+        header = b""
+        while header.count(b"&") < 3:
+            byte = f.read(1)
+            if not byte:
+                raise ValueError(f"truncated COLMAP bin header in {path!r}")
+            header += byte
+        width, height, channels = (int(v) for v in header.split(b"&")[:3])
+        data = np.fromfile(f, "<f4")
+    if data.size != width * height * channels:
+        raise ValueError(f"COLMAP bin payload size mismatch in {path!r}")
+    return np.ascontiguousarray(
+        data.reshape((width, height, channels), order="F").transpose(1, 0, 2))
+
+
+def save_bin(path: str, data: np.ndarray) -> None:
+    """Write a float32 [H, W], [H, W, 1] or [H, W, 3] map as COLMAP .bin."""
+    if data.dtype != np.float32:
+        raise ValueError("COLMAP bin data dtype must be float32")
+    if data.ndim == 2:
+        data = data[:, :, None]
+    if data.ndim != 3 or data.shape[2] not in (1, 3):
+        raise ValueError("map must be HxW, HxWx1 or HxWx3")
+    height, width, channels = data.shape
+    with open(path, "wb") as f:
+        f.write(f"{width}&{height}&{channels}&".encode("ascii"))
+        data.transpose(1, 0, 2).reshape(-1, order="F").astype("<f4").tofile(f)
+
+
+def read_map(path: str, max_dim: int = -1) -> np.ndarray:
+    """A .pfm or .bin map as [H, W, C] float32, shrunk so max(H, W) <= max_dim."""
+    if path.endswith(".bin"):
+        data = read_bin(path)
+    elif path.endswith(".pfm"):
+        data = read_pfm(path)
+    else:
+        raise ValueError(f"map format of {path!r}: only .pfm and .bin are supported")
+    return scale_to_max_dim(data, max_dim)[0]
+
+
+def save_map(path: str, data: np.ndarray) -> None:
+    """Write a float32 map as .pfm ([H, W]) or .bin, by the path's extension."""
+    if path.endswith(".bin"):
+        os.makedirs(os.path.dirname(os.path.abspath(path)), exist_ok=True)
+        save_bin(path, data)
+    elif path.endswith(".pfm"):
+        save_pfm(path, data)
+    else:
+        raise ValueError(f"map format of {path!r}: only .pfm and .bin are supported")
+
+
+_PLY_VERTEX = np.dtype([("x", "<f4"), ("y", "<f4"), ("z", "<f4"),
+                        ("red", "u1"), ("green", "u1"), ("blue", "u1")])
+_PLY_TYPES = {b"float": "<f4", b"float32": "<f4", b"double": "<f8", b"uchar": "u1",
+              b"uint8": "u1", b"int": "<i4", b"int32": "<i4"}
+
+
+def save_ply(path: str, xyz: np.ndarray, rgb: np.ndarray) -> None:
+    """Write a coloured point cloud (xyz [N, 3] as float32, rgb [N, 3] as
+    uint8) as a binary little-endian PLY with one vertex element."""
+    xyz, rgb = np.asarray(xyz), np.asarray(rgb)
+    if xyz.ndim != 2 or xyz.shape[1] != 3:
+        raise ValueError("xyz must be (N, 3)")
+    if rgb.shape != xyz.shape:
+        raise ValueError("rgb must match xyz shape")
+    vertices = np.empty(xyz.shape[0], _PLY_VERTEX)
+    for i, name in enumerate(("x", "y", "z")):
+        vertices[name] = xyz[:, i]
+    for i, name in enumerate(("red", "green", "blue")):
+        vertices[name] = rgb[:, i].astype(np.uint8)
+    header = ["ply", "format binary_little_endian 1.0", f"element vertex {xyz.shape[0]}"]
+    header += [f"property float {c}" for c in "xyz"]
+    header += [f"property uchar {c}" for c in ("red", "green", "blue")]
+    header += ["end_header"]
+    os.makedirs(os.path.dirname(os.path.abspath(path)), exist_ok=True)
+    with open(path, "wb") as f:
+        f.write(("\n".join(header) + "\n").encode("ascii"))
+        vertices.tofile(f)
+
+
+def read_ply(path: str) -> Tuple[np.ndarray, np.ndarray]:
+    """(xyz [N, 3] float32, rgb [N, 3] uint8, zeros without colour) of a
+    binary little-endian PLY whose only element is `vertex`."""
+    with open(path, "rb") as f:
+        if f.readline().strip() != b"ply":
+            raise ValueError(f"not a PLY file: {path!r}")
+        if b"binary_little_endian" not in f.readline():
+            raise ValueError("only binary little-endian PLY is supported")
+        n, props = 0, []
+        while True:
+            line = f.readline()
+            if not line:
+                raise ValueError("unexpected end of file in the PLY header")
+            parts = line.split()
+            if parts[0] == b"end_header":
+                break
+            if parts[0] == b"element":
+                if parts[1] != b"vertex":
+                    raise ValueError("only vertex-only PLY files are supported")
+                n = int(parts[2])
+            elif parts[0] == b"property":
+                props.append((parts[2].decode("ascii"), _PLY_TYPES[parts[1]]))
+        data = np.fromfile(f, dtype=np.dtype(props), count=n)
+    xyz = np.stack([data["x"], data["y"], data["z"]], axis=1).astype(np.float32)
+    if "red" in data.dtype.names:
+        rgb = np.stack([data["red"], data["green"], data["blue"]], axis=1).astype(np.uint8)
+    else:
+        rgb = np.zeros((n, 3), np.uint8)
+    return xyz, rgb

@@ -27,30 +27,17 @@ from concurrent.futures import ThreadPoolExecutor
 from typing import Any, Dict, Iterator, List, Sequence, Tuple
 
 import numpy as np
-import torch
-import torch.nn.functional as F
 
-from patchmatchnet_torch.data.codecs import read_cam_file, read_image, read_pair_file, read_pfm
+from patchmatchnet_torch.data.codecs import (
+    read_cam_file,
+    read_image,
+    read_pair_file,
+    read_pfm,
+    resize_images,
+    scale_to_max_dim,
+)
 
 _EPOCH_STRIDE = 1000003
-
-
-def _resize_bilinear(images: np.ndarray, height: int, width: int) -> np.ndarray:
-    """[N, H, W, C] float32 -> [N, height, width, C], bilinear with
-    half-pixel centers (cv2.INTER_LINEAR convention)."""
-    nchw = torch.from_numpy(np.ascontiguousarray(images)).permute(0, 3, 1, 2)
-    out = F.interpolate(nchw, size=(height, width), mode="bilinear", align_corners=False)
-    return out.permute(0, 2, 3, 1).contiguous().numpy()
-
-
-def scale_to_max_dim(image: np.ndarray, max_dim: int) -> Tuple[np.ndarray, int, int]:
-    """Shrink [H, W, C] so max(H, W) <= max_dim (never grows; max_dim <= 0
-    keeps it). Returns (image, original height, original width)."""
-    height, width = image.shape[:2]
-    scale = max_dim / max(height, width)
-    if 0 < scale < 1:
-        image = _resize_bilinear(image[None], int(scale * height), int(scale * width))[0]
-    return image, height, width
 
 
 def adjust_sample_dims(sample: Dict[str, Any]) -> Dict[str, Any]:
@@ -60,7 +47,7 @@ def adjust_sample_dims(sample: Dict[str, Any]) -> Dict[str, Any]:
     new_h, new_w = int(round(height / 8)) * 8, int(round(width / 8)) * 8
     out = dict(sample, orig_height=height, orig_width=width)
     if (new_h, new_w) != (height, width):
-        out["images"] = _resize_bilinear(sample["images"], new_h, new_w)
+        out["images"] = resize_images(sample["images"], new_h, new_w)
         intrinsics = sample["intrinsics"].copy()
         intrinsics[:, 0] *= new_w / width
         intrinsics[:, 1] *= new_h / height

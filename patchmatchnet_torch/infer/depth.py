@@ -17,7 +17,7 @@ from typing import Any, Dict, Iterable, Tuple, Union
 import numpy as np
 import torch
 
-from patchmatchnet_torch.data.codecs import save_pfm
+from patchmatchnet_torch.data.codecs import save_map
 from patchmatchnet_torch.models.net import PatchmatchNet
 from patchmatchnet_torch.models.patchmatch import INITIAL_NUM_SAMPLES
 from patchmatchnet_torch.ops.resize import resize_bilinear_maps, resize_nearest_maps
@@ -83,18 +83,19 @@ def save_depth_maps(
     loader: Iterable[Dict[str, Any]],
     output_folder: str,
     seed: int = 0,
+    file_format: str = ".pfm",
 ) -> int:
-    """Run inference over a loader and write depth_est/ + confidence/ PFM
-    maps ("depth_est/{view:08d}.pfm" etc., as the reference). The stage-3
-    noise comes from one torch.Generator seeded with `seed`. Returns the
-    number of maps written."""
+    """Run inference over a loader and write depth_est/ + confidence/ maps in
+    `file_format` (.pfm or COLMAP .bin), named as the reference names them
+    ("depth_est/{view:08d}.pfm" etc.). The stage-3 noise comes from one
+    torch.Generator seeded with `seed`. Returns the number of maps written."""
     generator = torch.Generator(device=estimator.device).manual_seed(seed)
     count = 0
     for batch in loader:
         depth, confidence = estimator(batch, generator)
         for filename, d, c in zip(batch["filename"], depth, confidence):
             for folder, value in (("depth_est", d), ("confidence", c)):
-                save_pfm(os.path.join(output_folder, filename.format(folder, ".pfm")),
+                save_map(os.path.join(output_folder, filename.format(folder, file_format)),
                          value.astype(np.float32))
             count += 1
     return count

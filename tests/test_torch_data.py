@@ -1,7 +1,8 @@
 """The port's host data layer against the JAX package's: codecs, synthetic
 scene, MVSDataset samples and the loader's multiple-of-8 adjustment, on the
-same files. Image values are compared at f32 rounding (both decode 8-bit
-PNGs to [0, 1]). The multiple-of-8 resize is compared at 1e-5: torch
+same files. Decoded images equal the JAX package's to the bit: both decode
+an 8-bit level x as x * f32(1/255) (its native host library, which loads
+here). The multiple-of-8 resize is compared at 1e-5: torch
 computes the source coordinate in f32 (an ulp of x ~ 84 is 8e-6 px), and
 the texture changes by up to ~0.5 per pixel."""
 
@@ -11,16 +12,20 @@ import os
 import numpy as np
 import pytest
 
+from patchmatchnet_tpu import native
 from patchmatchnet_tpu.data import BatchLoader as JaxBatchLoader
 from patchmatchnet_tpu.data import MVSDataset as JaxMVSDataset
 from patchmatchnet_tpu.dataio import read_cam_file as jax_read_cam_file
 from patchmatchnet_tpu.dataio import read_pfm as jax_read_pfm
+from patchmatchnet_tpu.dataio import save_image as jax_save_image
+from patchmatchnet_tpu.dataio.image import read_image as jax_read_image
 from patchmatchnet_tpu.dataio import save_pfm as jax_save_pfm
 from patchmatchnet_torch.data import (
     BatchLoader,
     MVSDataset,
     make_synthetic_scene,
     read_cam_file,
+    read_image,
     read_pfm,
     save_pfm,
 )
@@ -61,12 +66,27 @@ def test_pfm_matches_reference_codec(tmp_path, shape):
     np.testing.assert_array_equal(got.reshape(shape), data)
 
 
+def test_image_decode_matches_reference_at_every_level(tmp_path):
+    """All 256 levels of an 8-bit PNG decode as the JAX read_image decodes
+    them, to the bit; a division by 255 differs at 126 of them."""
+    assert native.get_lib() is not None, "the JAX package's native decode did not load"
+    levels = np.arange(256, dtype=np.uint8).reshape(16, 16)
+    path = str(tmp_path / "levels.png")
+    jax_save_image(path, np.stack([levels, levels[::-1], levels.T], axis=2))
+    got = read_image(path)
+    np.testing.assert_array_equal(got, jax_read_image(path)[0])
+    np.testing.assert_array_equal(got[:, :, 0].ravel(),
+                                  np.arange(256, dtype=np.float32) * np.float32(1 / 255))
+    np.testing.assert_array_equal((got * 255).astype(np.uint8)[:, :, 0], levels)
+
+
 @pytest.mark.parametrize("idx", [0, 2])
 def test_dataset_sample_matches_reference(scenes, idx):
     port, _ = scenes
     got = MVSDataset(port, num_views=2, image_extension=".png")[idx]
     want = JaxMVSDataset(port, num_views=2, image_extension=".png")[idx]
-    np.testing.assert_allclose(got["images"], want["images"], rtol=0, atol=1e-7)
+    assert native.get_lib() is not None, "the JAX package's native decode did not load"
+    np.testing.assert_array_equal(got["images"], want["images"])
     for key in ("intrinsics", "extrinsics", "depth_min", "depth_max"):
         np.testing.assert_array_equal(got[key], want[key])
     assert got["filename"] == want["filename"]

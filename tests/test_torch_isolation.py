@@ -52,9 +52,10 @@ def _script_imports(path):
 
 
 def test_port_imports_no_jax():
-    """Neither the port (its gather tool too) nor the scripts that drive it
-    (chip_smoke.py and the profiling tool, including imports inside their
-    functions) name or load a module of JAX, flax or the JAX package."""
+    """Neither the port (its gather tool, fusion and DTU protocol too) nor
+    the scripts that drive it (chip_smoke.py and the profiling tool,
+    including imports inside their functions) name or load a module of JAX,
+    flax or the JAX package."""
     named = set().union(*(_script_imports(p) for p in SCRIPTS))
     assert not sorted(m for m in named if m.split(".")[0] in FORBIDDEN)
     modules = sorted(m for m in named if m.split(".")[0] == "patchmatchnet_torch")
@@ -64,6 +65,8 @@ def test_port_imports_no_jax():
         "import patchmatchnet_torch.models, patchmatchnet_torch.infer, patchmatchnet_torch.data\n"
         "import patchmatchnet_torch.train, patchmatchnet_torch.utils, patchmatchnet_torch.config\n"
         "import patchmatchnet_torch.dev.bench_gather\n"
+        "import patchmatchnet_torch.geometry, patchmatchnet_torch.eval_protocols\n"
+        "import patchmatchnet_torch.infer.fusion\n"
         f"for m in {modules!r}:\n"
         "    importlib.import_module(m)\n"
         "import chip_smoke\n"
@@ -138,6 +141,18 @@ def test_cuda_request_without_cuda_raises():
         cuda_build.kernel_library()
     with pytest.raises(RuntimeError, match="CUDA"):
         DepthEstimator(PatchmatchNet(), device="cuda")
+
+
+def test_fusion_cuda_request_without_cuda_raises(tmp_path):
+    """filter_and_fuse runs on CUDA unless asked for the CPU, and raises
+    without CUDA before it reads anything."""
+    _no_cuda()
+    from patchmatchnet_torch.infer import filter_and_fuse
+
+    with pytest.raises(RuntimeError, match="CUDA"):
+        filter_and_fuse(str(tmp_path), str(tmp_path), verbose=False)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        filter_and_fuse(str(tmp_path), str(tmp_path), verbose=False, device="cuda:0")
 
 
 @pytest.mark.parametrize("kernel", ["warp", "neighbor", "eval", "views", "coord", "lanes",
