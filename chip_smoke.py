@@ -18,7 +18,14 @@ result line:
    coordinates equals K1, both to the bit; K7 on those coordinates (the
    same tiled kernel reading the coordinates K1 computes) is timed beside
    K1. One line per kernel of the main path gives its device ms per stage
-   shape and per forward.
+   shape and per forward. Phase 12's shapes are held to the same bounds and
+   timed beside them, outside the kernels line: its non-default
+   configuration's (K3 and K2 at Ke = 17 (stages 3 and 1), K1, K6 (also
+   against the per-view route, to the bit) and K2 at D = 20 (stage 2) and
+   D = 12 (stage 1)) and the DTU preset's (1600x1200, stage maps 150x200,
+   300x400 and 600x800: K1 on each of 5 sources, K6 at V = 5, also against
+   the per-view route to the bit, K3 and K2), with its hand-kernel device
+   ms per forward.
 4. f32 golden parity: the f32 model (kernels on, TF32 off) against the
    captured reference outputs in tests/golden/.
 5. main path: a 1152x864, 5-view synthetic scene through MVSDataset ->
@@ -39,7 +46,12 @@ result line:
    on the training path's layout (stratified bins at stage 3 D64, a
    perturbed plane elsewhere), each case with its scatter count
    (`k4_scatter_counts`): the 16-byte atomics into d_src beside the design
-   before's, and the runs of consecutive samples in one cell.
+   before's, and the runs of consecutive samples in one cell. K5 at Ke = 17
+   (stages 3 and 1) and K4 at D = 20 and 12 (stages 2 and 1), phase 12's
+   non-default configuration, are held to the same bounds and timed; so
+   are K4 (both depth layouts) and K5 at phase 12 (b)'s B = 8, with K1 and
+   K3 forward at B = 8 held to phase 3's bounds; K4's device ms per train
+   step at B = 8 with 1 + 5 views is printed.
 8. f32 train-step parity: one f32 train step (kernels on, TF32 off) on a
    64x80, 3-view plane batch against the same step on the CPU (plain
    versions): loss and per-leaf gradient cosine, and the step's launches.
@@ -75,6 +87,28 @@ result line:
    per-pixel consistent-view counts and final mask differ from the CPU's at
    most at 0.1% of the pixels and the fused points of pixels in both final
    masks agree within 1e-4 relative.
+12. CLI path: `python -m patchmatchnet_torch` in its own process, each run
+   with its own timeout (CLI_TIMEOUT), printing the hand-kernel launches it
+   made, which must be those of its forwards and steps:
+   (a) `eval` with scripts/eval.sh's DTU flags (`--num_views 5
+   --image_max_dim 1600 --geo_mask_thres 3 --photo_thres 0.8`, a scan
+   list of one scan) on a 7-view 1600x1200 scan: every view's depth and
+   confidence maps at 1600x1200, the median |depth - plane| on each view's
+   final mask and the fused points' median |z - plane| within 5% of the
+   plane, ms per map and per fused view; view 0's map against
+   DepthEstimator in this process (same weights, inputs and noise; every
+   kernel of the forward is deterministic, so it should be equal: bound
+   median 0 and at most 0.1% of the pixels off by more than 1e-3 of the
+   depth range, room for another cuDNN algorithm in another process),
+   then warm in-process ms per map at the same preset;
+   (b) `train` with scripts/train.sh's flags that apply (`--batch_size 8
+   --epochs 1`, `--image_max_dim` 640) from the released weights on a
+   24-view 640x512 scan: 3 steps at 1 + 5 views, ms per step, peak MiB,
+   the checkpoint set and finite losses;
+   (c) the non-default configuration (VARIANT_FLAGS: propagation 4/8/16,
+   evaluation 17/9/17, iterations 2/1/2, samples 8/12/16) trained one
+   epoch from scratch at 640x512, B = 2, then `eval --output_type depth`
+   from the `module_000000.pt` it wrote at 1152x864, 1 + 4 views.
 
 The last line is {"ok": true, "device": {...}}; the line before it holds
 the per-kernel JSON summary.
@@ -106,8 +140,24 @@ SWEEP_DEPTHS = {3: 64, 2: 16, 1: 8}
 # CPU's (the middle view and an end view)
 RECON_VIEWS = 11
 FUSION_CHECK_VIEWS = (5, 0)
+# the command line (phase 12): scripts/eval.sh's DTU preset on a 7-view scan
+# at DTU's test image size (each reference with 6 sources, 5 taken), and
+# scripts/train.sh's batch on a 24-view 640x512 scan (3 steps of 8)
+DTU_EVAL_FLAGS = ["--num_views", "5", "--image_max_dim", "1600", "--geo_mask_thres", "3",
+                  "--photo_thres", "0.8"]
+CLI_EVAL_SCAN, CLI_EVAL_VIEWS, CLI_EVAL_SOURCES, CLI_EVAL_H, CLI_EVAL_W = "scan1", 7, 5, 1200, 1600
+# The preset keeps pixels of photometric confidence > 0.8, a stage-1 score
+# peaked on few of its 8 close hypotheses, which takes texture of a few
+# pixels' period, as DTU's surfaces have. The smooth texture of the other
+# phases (scale 8) leaves the stage-1 score nearly flat (confidence 0.50-0.55:
+# no pixel passes); scale 128 gives a period of ~4.6 px at 1600x1200.
+CLI_EVAL_TEXTURE = 128.0
+CLI_TRAIN_SCAN, CLI_TRAIN_VIEWS, CLI_TRAIN_BATCH = "scan2", 24, 8
+CLI_TIMEOUT = 300  # seconds, each CLI process
 # the source views' x baselines of the parity rig (the first is the reference)
 RIG_BASELINES = (0.0, 0.35, -0.35, 0.7, -0.7)
+# the rig of phase 12 (a)'s kernel shapes: 1 + 5 views
+DTU_RIG_BASELINES = RIG_BASELINES + (1.05,)
 # K6 beyond a block's chunk of views (csrc/group_corr.cu `kViewChunk`): views,
 # at stage 2's shape
 MANY_VIEWS = 64
@@ -118,6 +168,19 @@ TIMED_STEPS = 6
 EXPECTED_PER_STEP = {"warp_group_corr": 20, "warp_group_corr_backward": 20,
                      "neighbor_group_corr": 3, "neighbor_group_corr_backward": 3,
                      "eval_grid_score": 0}
+# The non-default configuration of phase 12 (c) and what it gives the
+# kernels at each stage of the main path's shape: stage -> (Ke, D of its
+# evaluations). D = 20 (12 + 8 propagated) and 12 (8 + 4) are new depths;
+# K3 and K5 take Ke = 17 in two blocks of neighbours.
+VARIANT_FLAGS = ["--propagate_neighbors", "4", "8", "16", "--evaluate_neighbors", "17", "9", "17",
+                 "--patchmatch_iteration", "2", "1", "2", "--patchmatch_num_sample", "8", "12",
+                 "16"]
+VARIANT_STAGES = {3: (17, (64, 32)), 2: (9, (20,)), 1: (17, (12, 8))}
+# the kernel cases held and timed outside the kernels line: phase 12's
+# shapes that the main paths of phases 5 and 9 do not give
+VARIANT = "variant configuration (phase 12 (c))"
+DTU_PRESET = "DTU preset (phase 12 (a))"
+CLI_BATCH = "B 8 (phase 12 (b))"
 KERNEL_INFO = {
     "warp_group_corr": ("patchmatchnet_torch/csrc/group_corr.cu",
                         "patchmatchnet_tpu/ops/pallas/windowed_similarity.py:419"),
@@ -248,6 +311,18 @@ def add_time(entry, name, args, out, launches, ms, plain_ms, dev_ms):
     entry["ops"] += work_ops * launches
 
 
+def hold(name: str, label: str, got, want, interval: float) -> float:
+    """Print a kernel's error against its plain version and fail outside
+    `parity_tol`; returns the max abs error."""
+    err = (got - want).abs()
+    max_abs, mean_abs = err.max().item(), err.mean().item()
+    tol_max, tol_mean = parity_tol(name, interval)
+    print(f"{name} {label}: max_abs {max_abs:.3e} mean_abs {mean_abs:.3e}", flush=True)
+    if not (max_abs <= tol_max and mean_abs <= tol_mean):
+        fail(f"{name} {label} exceeds max {tol_max} / mean {tol_mean}")
+    return max_abs
+
+
 def fail(msg: str) -> None:
     print(f"FAIL: {msg}", flush=True)
     sys.exit(1)
@@ -312,8 +387,9 @@ def kernel_parity(device):
     "device_ms", "bytes", "ops"}} with times and work summed over the
     kernel's launches per pass of its path (bf16 payloads): a forward of the
     main path for K1, K2, K3 and K6, a plane sweep for K7. Fails unless K6
-    equals the per-view route (also with MANY_VIEWS views at stage 2) and
-    K7 on the warp coordinates equals K1, to the bit, in bf16 and f32."""
+    equals the per-view route (also with MANY_VIEWS views at stage 2, and
+    at V = 5 at the DTU preset's shapes) and K7 on the warp coordinates
+    equals K1, to the bit, in bf16 and f32."""
     import torch
 
     from patchmatchnet_torch import ops
@@ -342,8 +418,16 @@ def kernel_parity(device):
     baseline = {"k1": 0.0, "k7": 0.0}
     # device ms per call of each timed (bf16) case: kernel -> [(label, ms, launches)]
     per_stage = {name: [] for name in INFERENCE_KERNELS}
+    # cases outside the kernels line: set -> [(kernel, label, device ms, launches per forward)]
+    extra_rows = {VARIANT: [], DTU_PRESET: []}
+    variant_grids = {}  # stage -> (eval grid, feature weights) at the variant's Ke
+    vgen = torch.Generator(device=device).manual_seed(10)  # leaves gen's draws as they were
 
-    def record(name, label, args, got, want, launches, timed, fn, plain_fn, interval):
+    def record(name, label, args, got, want, launches, timed, fn, plain_fn, interval,
+               extra=None):
+        """Hold a kernel's output against its plain version; time the bf16
+        cases of the main path (`launches` per pass) and of the sets of
+        `extra_rows` (`extra`: printed, not summed into the pass)."""
         err = (got - want).abs()
         max_abs, mean_abs = err.max().item(), err.mean().item()
         tol_max, tol_mean = parity_tol(name, interval)
@@ -351,13 +435,18 @@ def kernel_parity(device):
         line = f"{name} {label}: max_abs {max_abs:.3e} mean_abs {mean_abs:.3e}"
         s = summary[name]
         s["max_abs_err"] = max(s["max_abs_err"], max_abs)
-        if timed and launches:
+        if timed and (launches or extra):
             ms, plain_ms, dev_ms = time_ms(fn), time_ms(plain_fn), device_ms(fn)
-            add_time(s, name, args, got, launches, ms, plain_ms, dev_ms)
-            per_stage[name].append((label.split(" (")[0], dev_ms, launches))
+            if extra:
+                extra_rows[extra].append((name, label.split(" (")[0], dev_ms, launches))
+            else:
+                add_time(s, name, args, got, launches, ms, plain_ms, dev_ms)
+                per_stage[name].append((label.split(" (")[0], dev_ms, launches))
             work_ms, by = bound(*kernel_work(name, args, got))
             line += (f" | kernel {ms:.4f} ms device {fmt_ms(dev_ms)} plain {plain_ms:.4f} ms "
-                     f"bound {work_ms:.4f} ms ({by}) (x{launches}/pass)")
+                     f"bound {work_ms:.4f} ms ({by})"
+                     + (f" (x{launches}/pass)" if not extra else
+                        f" ({extra}" + (f", x{launches}/forward)" if launches else ")")))
         print(line, flush=True)
         if not ok:
             fail(f"{name} {label} exceeds max {tol_max} / mean {tol_mean}")
@@ -373,6 +462,11 @@ def kernel_parity(device):
         feats = torch.randn((1, 1 + mats.shape[1], h, w, c), generator=gen, device=device)
         vw = torch.rand((1, mats.shape[1], h, w), generator=gen, device=device)
         fw = torch.rand((1, 9, h, w), generator=gen, device=device) * 0.9 + 0.1
+        ke = VARIANT_STAGES[stage][0]
+        voffset = torch.randn((1, h, w, 2 * ke), generator=vgen, device=device) * 2.0
+        variant_grids[stage] = (
+            build_offset_grid(voffset, evaluation_offsets(cfg.propagation_range, ke), h, w),
+            torch.rand((1, ke, h, w), generator=vgen, device=device) * 0.9 + 0.1)
         for dtype in (torch.bfloat16, torch.float32):
             timed = dtype == torch.bfloat16
             tag = "bf16" if timed else "f32"
@@ -461,10 +555,114 @@ def kernel_parity(device):
                        ops.eval_grid_score(*args), ops.eval_grid_score_reference(*args),
                        launches, timed, lambda: ops.eval_grid_score(*args),
                        lambda: ops.eval_grid_score_reference(*args), cfg.interval_scale)
+            # the variant configuration (phase 12 (c)) at this stage's shape:
+            # K3 and K2 on its eval grid, K1 and K6 at its new depths
+            ke, variant_depths = VARIANT_STAGES[stage]
+            vgrid, vfw = variant_grids[stage]
+            if ke != 9:
+                args = (ref, vgrid, g)
+                record("neighbor_group_corr", f"variant stage{stage} C{c} G{g} K{ke} {h}x{w} {tag}",
+                       args, ops.neighbor_group_corr(*args),
+                       ops.neighbor_group_corr_reference(*args), 0, timed,
+                       lambda: ops.neighbor_group_corr(*args),
+                       lambda: ops.neighbor_group_corr_reference(*args), cfg.interval_scale,
+                       extra=VARIANT)
+            for d in variant_depths:
+                if all(d != k1_d for k1_d, _, _ in k1_depths):
+                    depth = 4.8 + 3.0 * torch.rand((1, d, h, w), generator=vgen, device=device)
+                    depth[:, -1, :4] = -1.0
+                    args = (src, mat12, depth, ref, g)
+                    record("warp_group_corr", f"variant stage{stage} C{c} G{g} D{d} {h}x{w} {tag}",
+                           args, ops.warp_group_corr(*args),
+                           ops.warp_group_corr_reference(*args), 0, timed,
+                           lambda: ops.warp_group_corr(*args),
+                           lambda: ops.warp_group_corr_reference(*args), cfg.interval_scale,
+                           extra=VARIANT)
+                    args = (stack, mats, depth, ref, vw, g)
+                    got = ops.warp_group_corr_views(*args)
+                    diff = (got - per_view_route(*args)).abs().max().item()
+                    route["max_abs_diff"] = max(route["max_abs_diff"], diff)
+                    record("warp_group_corr_views",
+                           f"variant stage{stage} C{c} G{g} D{d} V{mats.shape[1]} {h}x{w} {tag} "
+                           f"(max |K6 - per-view route| {diff:.3e})", args, got,
+                           ops.warp_group_corr_views_reference(*args), 0, timed,
+                           lambda: ops.warp_group_corr_views(*args),
+                           lambda: ops.warp_group_corr_views_reference(*args),
+                           cfg.interval_scale, extra=VARIANT)
+                x_norm = torch.rand((1, h, w, d), generator=vgen, device=device)
+                cost = (torch.randn((1, h, w, d), generator=vgen, device=device)).to(dtype)
+                args = (x_norm, cost, vgrid, vfw, cfg.interval_scale)
+                record("eval_grid_score", f"variant stage{stage} K{ke} D{d} {h}x{w} cost {tag}",
+                       args, ops.eval_grid_score(*args), ops.eval_grid_score_reference(*args),
+                       0, timed, lambda: ops.eval_grid_score(*args),
+                       lambda: ops.eval_grid_score_reference(*args), cfg.interval_scale,
+                       extra=VARIANT)
+    # phase 12 (a)'s shapes: the DTU preset at 1600x1200 with 1 + 5 views
+    # (stage maps 150x200, 300x400, 600x800; K1 on each of 5 sources, K6
+    # at V = 5, also against the per-view route), bf16 timed and f32
+    dgen = torch.Generator(device=device).manual_seed(12)
+    for stage, c, g, scale, k1_depths, k6_depths in stages:
+        h, w = CLI_EVAL_H // scale, CLI_EVAL_W // scale
+        cfg = STAGE_CONFIG[stage]
+        projs = rig_cameras(h, w, 1.1 * max(CLI_EVAL_H, CLI_EVAL_W) / scale,
+                            DTU_RIG_BASELINES).to(device)
+        mats = warp_proj_coeffs(projs[:, 1:], projs[:, :1]).contiguous()  # [1, 5, 12]
+        views = mats.shape[1]
+        offset = torch.randn((1, h, w, 18), generator=dgen, device=device) * 2.0
+        grid = build_offset_grid(offset, evaluation_offsets(cfg.propagation_range), h, w)
+        feats = torch.randn((1, 1 + views, h, w, c), generator=dgen, device=device)
+        vw = torch.rand((1, views, h, w), generator=dgen, device=device)
+        fw = torch.rand((1, 9, h, w), generator=dgen, device=device) * 0.9 + 0.1
+        for dtype in (torch.bfloat16, torch.float32):
+            timed = dtype == torch.bfloat16
+            tag = "bf16" if timed else "f32"
+            ref, stack = feats[:, 0].to(dtype), feats[:, 1:].to(dtype).contiguous()
+            for d, launches, _ in k1_depths:
+                if not launches:
+                    continue
+                depth = 4.8 + 3.0 * torch.rand((1, d, h, w), generator=dgen, device=device)
+                depth[:, -1, :4] = -1.0
+                for v in range(views):
+                    args = (stack[:, v].contiguous(), mats[:, v].contiguous(), depth, ref, g)
+                    record("warp_group_corr", f"stage{stage} C{c} G{g} D{d} {h}x{w} {tag} "
+                           f"(source {v + 1} of {views})", args, ops.warp_group_corr(*args),
+                           ops.warp_group_corr_reference(*args), views if v == 0 else 0,
+                           timed and v == 0, lambda: ops.warp_group_corr(*args),
+                           lambda: ops.warp_group_corr_reference(*args), cfg.interval_scale,
+                           extra=DTU_PRESET)
+            for d, launches in k6_depths:
+                depth = 4.8 + 3.0 * torch.rand((1, d, h, w), generator=dgen, device=device)
+                depth[:, -1, :4] = -1.0
+                args = (stack, mats, depth, ref, vw, g)
+                got = ops.warp_group_corr_views(*args)
+                diff = (got - per_view_route(*args)).abs().max().item()
+                route["max_abs_diff"] = max(route["max_abs_diff"], diff)
+                record("warp_group_corr_views", f"stage{stage} C{c} G{g} D{d} V{views} {h}x{w} "
+                       f"{tag} (max |K6 - per-view route| {diff:.3e})", args, got,
+                       ops.warp_group_corr_views_reference(*args), launches, timed,
+                       lambda: ops.warp_group_corr_views(*args),
+                       lambda: ops.warp_group_corr_views_reference(*args), cfg.interval_scale,
+                       extra=DTU_PRESET)
+            args = (ref, grid, g)
+            record("neighbor_group_corr", f"stage{stage} C{c} G{g} K9 {h}x{w} {tag}", args,
+                   ops.neighbor_group_corr(*args), ops.neighbor_group_corr_reference(*args),
+                   1, timed, lambda: ops.neighbor_group_corr(*args),
+                   lambda: ops.neighbor_group_corr_reference(*args), cfg.interval_scale,
+                   extra=DTU_PRESET)
+            for d, _, launches in k1_depths:
+                x_norm = torch.rand((1, h, w, d), generator=dgen, device=device)
+                cost = (torch.randn((1, h, w, d), generator=dgen, device=device)).to(dtype)
+                args = (x_norm, cost, grid, fw, cfg.interval_scale)
+                record("eval_grid_score", f"stage{stage} D{d} {h}x{w} cost {tag}", args,
+                       ops.eval_grid_score(*args), ops.eval_grid_score_reference(*args),
+                       launches, timed, lambda: ops.eval_grid_score(*args),
+                       lambda: ops.eval_grid_score_reference(*args), cfg.interval_scale,
+                       extra=DTU_PRESET)
+        del feats, stack, args, got
     k6 = summary["warp_group_corr_views"]
     print(f"K6 per forward: {k6['ms']:.4f} ms (device {fmt_ms(k6['device_ms'])}) against the "
           f"per-view route it replaces (16 K1 launches and the weighted sum) {route['ms']:.4f} "
-          f"ms; max |K6 - per-view route| {route['max_abs_diff']:.3e} (bf16 and f32, 4 and "
+          f"ms; max |K6 - per-view route| {route['max_abs_diff']:.3e} (bf16 and f32, 4, 5 and "
           f"{MANY_VIEWS} views); max |K7 - K1| on the warp coordinates {k7_vs_k1[0]:.3e}; K1 per "
           f"forward device {fmt_ms(baseline['k1'])}, K7 (tiled) on K1's coordinates "
           f"{fmt_ms(baseline['k7'])}", flush=True)
@@ -473,6 +671,14 @@ def kernel_parity(device):
         print(f"{name} device ms per stage: " + "; ".join(
             f"{label} {fmt_ms(dev)} x{n}" for label, dev, n in per_stage[name])
             + f"; per forward {fmt_ms(summary[name]['device_ms'])}", flush=True)
+    for extra, rows in extra_rows.items():
+        per_forward = (None if any(dev is None for _, _, dev, _ in rows)
+                       else sum(dev * n for _, _, dev, n in rows))
+        print(f"{extra} device ms per call: " + "; ".join(
+            f"{name} {label} {fmt_ms(dev)}" + (f" x{n}" if n else "")
+            for name, label, dev, n in rows)
+            + (f"; hand kernels per forward {fmt_ms(per_forward)}" if extra == DTU_PRESET
+               else ""), flush=True)
     if route["max_abs_diff"] != 0.0:
         fail(f"K6 differs from the per-view route by {route['max_abs_diff']:.3e}")
     if k7_vs_k1[0] != 0.0:
@@ -712,7 +918,10 @@ def backward_parity(device):
     stages = [(3, 64, 8, 8, [(64, 4), (32, 4)]), (2, 32, 8, 4, [(16, 8)]),
               (1, 16, 4, 2, [(8, 4)])]
     summary = new_summary(BACKWARD_KERNELS)
-    per_step = {"iid": 0.0, "path": 0.0}  # K4 device ms per train step by layout
+    # K4 device ms per train step by layout, at B = 2 and at phase 12 (b)'s B = 8
+    per_step = {"iid": 0.0, "path": 0.0, "B8 iid": 0.0, "B8 path": 0.0}
+    variant_grids = {}  # stage -> eval grid at the variant configuration's Ke
+    vgen = torch.Generator(device=device).manual_seed(11)  # leaves gen's draws as they were
 
     def check(name, label, got, want, dtype):
         tol_max, tol_mean = backward_tol(dtype)
@@ -728,16 +937,22 @@ def backward_parity(device):
             summary[name]["max_abs_err"] = max(summary[name]["max_abs_err"], abs_max)
 
     def timed(name, label, launches, args, kernel_fn, plain_fn, layout=None):
+        """layout: None or "iid" (the kernels line's cases), "path" (K4 on
+        the training path's depths), "variant" (phase 12 (c)'s shapes,
+        printed only) or "B8", "B8 iid", "B8 path" (phase 12 (b)'s batch,
+        printed only)."""
         out = kernel_fn()
         ms, plain_ms, dev_ms = time_ms(kernel_fn), time_ms(plain_fn), device_ms(kernel_fn)
-        if layout != "path":  # the kernels line keeps the i.i.d. cases
+        if layout in (None, "iid"):  # the kernels line keeps the i.i.d. cases
             add_time(summary[name], name, args, out, launches, ms, plain_ms, dev_ms)
-        if layout is not None and per_step[layout] is not None:
+        if layout in per_step and per_step[layout] is not None:
             per_step[layout] = None if dev_ms is None else per_step[layout] + dev_ms * launches
         work_ms, by = bound(*kernel_work(name, args, out))
         print(f"{name} {label}: wrapper {ms:.4f} ms device {fmt_ms(dev_ms)} plain "
-              f"{plain_ms:.4f} ms bound {work_ms:.4f} ms ({by}) (x{launches}/train step)",
-              flush=True)
+              f"{plain_ms:.4f} ms bound {work_ms:.4f} ms ({by}) "
+              + (f"({VARIANT})" if layout == "variant" else
+                 f"({CLI_BATCH}, x{launches}/train step)" if (layout or "").startswith("B8") else
+                 f"(x{launches}/train step)"), flush=True)
 
     for stage, c, g, scale, depths in stages:
         h, w = TRAIN_H // scale, TRAIN_W // scale
@@ -748,6 +963,10 @@ def backward_parity(device):
         offset = torch.randn((b, h, w, 18), generator=gen, device=device) * 2.0
         grid = build_offset_grid(offset, evaluation_offsets(cfg.propagation_range), h, w)
         feats = torch.randn((2, b, h, w, c), generator=gen, device=device)
+        ke = VARIANT_STAGES[stage][0]
+        voffset = torch.randn((b, h, w, 2 * ke), generator=vgen, device=device) * 2.0
+        variant_grids[stage] = build_offset_grid(
+            voffset, evaluation_offsets(cfg.propagation_range, ke), h, w)
         for dtype in (torch.bfloat16, torch.float32):
             tag = "bf16" if dtype == torch.bfloat16 else "f32"
             ref, src = feats[0].to(dtype), feats[1].to(dtype)
@@ -783,9 +1002,102 @@ def backward_parity(device):
                 timed("neighbor_group_corr_backward", label, 1, args,
                       lambda: ops.neighbor_group_corr_backward(*args),
                       lambda: torch.autograd.grad(out, (gx, gy), dout, retain_graph=True))
+            # the variant configuration (phase 12 (c)) at this stage's training
+            # shape: K5 on its Ke = 17 eval grid, K4 at its new depths
+            ke, variant_depths = VARIANT_STAGES[stage]
+            vgrid = variant_grids[stage]
+            if ke != 9:
+                dout = torch.randn((b, g, ke, h, w), generator=vgen, device=device)
+                args = (ref, vgrid, g, dout)
+                label = f"variant stage{stage} C{c} G{g} K{ke} B{b} {h}x{w} {tag}"
+                check("neighbor_group_corr_backward", label,
+                      ops.neighbor_group_corr_backward(*args),
+                      ops.neighbor_group_corr_backward_reference(*args), dtype)
+                if dtype == torch.bfloat16:
+                    gx, gy = (t.detach().requires_grad_(True) for t in vgrid)
+                    out = ops.neighbor_group_corr_reference(ref, (gx, gy), g)
+                    timed("neighbor_group_corr_backward", label, 0, args,
+                          lambda: ops.neighbor_group_corr_backward(*args),
+                          lambda: torch.autograd.grad(out, (gx, gy), dout, retain_graph=True),
+                          "variant")
+            for d in variant_depths:
+                if any(d == main_d for main_d, _ in depths):
+                    continue
+                depth = 4.8 + 3.0 * torch.rand((b, d, h, w), generator=vgen, device=device)
+                depth[:, -1, :4] = -1.0
+                dout = torch.randn((b, g, d, h, w), generator=vgen, device=device)
+                args = (src, mat12, depth, ref, g, dout)
+                label = f"variant stage{stage} C{c} G{g} D{d} B{b} {h}x{w} {tag}"
+                check("warp_group_corr_backward", label, ops.warp_group_corr_backward(*args),
+                      ops.warp_group_corr_backward_reference(*args), dtype)
+                if dtype == torch.bfloat16:
+                    s_ = src.detach().requires_grad_(True)
+                    r_ = ref.detach().requires_grad_(True)
+                    out = ops.warp_group_corr_reference(s_, mat12, depth, r_, g)
+                    timed("warp_group_corr_backward", label, 0, args,
+                          lambda: ops.warp_group_corr_backward(*args),
+                          lambda: torch.autograd.grad(out, (s_, r_), dout, retain_graph=True),
+                          "variant")
+    # phase 12 (b)'s batch: K1, K3, K4 and K5 at B = 8 with 1 + 5 views (K1
+    # and K4 5 launches per evaluation), bf16 timed and f32; printed only
+    bgen = torch.Generator(device=device).manual_seed(13)
+    b = CLI_TRAIN_BATCH
+    stages = [(3, 64, 8, 8, [(64, 5), (32, 5)]), (2, 32, 8, 4, [(16, 10)]),
+              (1, 16, 4, 2, [(8, 5)])]
+    for stage, c, g, scale, depths in stages:
+        h, w = TRAIN_H // scale, TRAIN_W // scale
+        cfg = STAGE_CONFIG[stage]
+        projs = rig_cameras(h, w, 1.1 * max(TRAIN_H, TRAIN_W) / scale).to(device)
+        mat12 = warp_proj_coeffs(projs[:, 1], projs[:, 0]).expand(b, 12).contiguous()
+        offset = torch.randn((b, h, w, 18), generator=bgen, device=device) * 2.0
+        grid = build_offset_grid(offset, evaluation_offsets(cfg.propagation_range), h, w)
+        feats = torch.randn((2, b, h, w, c), generator=bgen, device=device)
+        for dtype in (torch.bfloat16, torch.float32):
+            tag = "bf16" if dtype == torch.bfloat16 else "f32"
+            ref, src = feats[0].to(dtype), feats[1].to(dtype)
+            for d, launches in depths:
+                for layout in ("iid", "path"):
+                    if layout == "iid":
+                        depth = 4.8 + 3.0 * torch.rand((b, d, h, w), generator=bgen, device=device)
+                        depth[:, -1, :4] = -1.0
+                    else:
+                        depth = path_depth(stage, b, d, h, w, bgen, device)
+                    label = f"stage{stage} C{c} G{g} D{d} B{b} {h}x{w} {tag} {layout}"
+                    fwd = (src, mat12, depth, ref, g)
+                    hold("warp_group_corr", label, ops.warp_group_corr(*fwd),
+                         ops.warp_group_corr_reference(*fwd), cfg.interval_scale)
+                    dout = torch.randn((b, g, d, h, w), generator=bgen, device=device)
+                    args = fwd + (dout,)
+                    check("warp_group_corr_backward", label, ops.warp_group_corr_backward(*args),
+                          ops.warp_group_corr_backward_reference(*args), dtype)
+                    if dtype == torch.bfloat16:
+                        s_ = src.detach().requires_grad_(True)
+                        r_ = ref.detach().requires_grad_(True)
+                        out = ops.warp_group_corr_reference(s_, mat12, depth, r_, g)
+                        timed("warp_group_corr_backward", label, launches, args,
+                              lambda: ops.warp_group_corr_backward(*args),
+                              lambda: torch.autograd.grad(out, (s_, r_), dout, retain_graph=True),
+                              f"B8 {layout}")
+                        del out
+            label = f"stage{stage} C{c} G{g} K9 B{b} {h}x{w} {tag}"
+            hold("neighbor_group_corr", label, ops.neighbor_group_corr(ref, grid, g),
+                 ops.neighbor_group_corr_reference(ref, grid, g), cfg.interval_scale)
+            dout = torch.randn((b, g, 9, h, w), generator=bgen, device=device)
+            args = (ref, grid, g, dout)
+            check("neighbor_group_corr_backward", label, ops.neighbor_group_corr_backward(*args),
+                  ops.neighbor_group_corr_backward_reference(*args), dtype)
+            if dtype == torch.bfloat16:
+                gx, gy = (t.detach().requires_grad_(True) for t in grid)
+                out = ops.neighbor_group_corr_reference(ref, (gx, gy), g)
+                timed("neighbor_group_corr_backward", label, 1, args,
+                      lambda: ops.neighbor_group_corr_backward(*args),
+                      lambda: torch.autograd.grad(out, (gx, gy), dout, retain_graph=True), "B8")
+                del out
+        del feats, ref, src, args, dout
     print(f"warp_group_corr_backward device ms per train step: i.i.d. depths "
-          f"{fmt_ms(per_step['iid'])}, the training path's layout {fmt_ms(per_step['path'])}",
-          flush=True)
+          f"{fmt_ms(per_step['iid'])}, the training path's layout {fmt_ms(per_step['path'])}; "
+          f"at {CLI_BATCH} with 1 + 5 views: i.i.d. depths {fmt_ms(per_step['B8 iid'])}, the "
+          f"training path's layout {fmt_ms(per_step['B8 path'])}", flush=True)
     return summary
 
 
@@ -1092,7 +1404,6 @@ def reconstruction_path(device, state_dict, scene, smi):
         read_map,
         read_pair_file,
         read_ply,
-        save_pair_file,
     )
     from patchmatchnet_torch.geometry import backproject_to_world
     from patchmatchnet_torch.infer import DepthEstimator, FusionConfig, save_depth_maps
@@ -1102,11 +1413,7 @@ def reconstruction_path(device, state_dict, scene, smi):
 
     make_synthetic_scene(scene, num_views=RECON_VIEWS, height=MAIN_H, width=MAIN_W,
                          texture_scale=8.0)
-    # sources best first (score 10 - |s - v|), as DTU's pair.txt lists them
-    pairs = read_pair_file(os.path.join(scene, "pair.txt"))
-    save_pair_file(os.path.join(scene, "pair.txt"),
-                   [(v, [(s, 10.0 - abs(s - v)) for s in sorted(srcs, key=lambda s: abs(s - v))])
-                    for v, srcs in pairs])
+    best_first_pairs(scene)
     pairs = dict(read_pair_file(os.path.join(scene, "pair.txt")))
 
     model = PatchmatchNet(compute_dtype=torch.bfloat16)
@@ -1200,6 +1507,253 @@ def reconstruction_path(device, state_dict, scene, smi):
             fail(f"ref view {ref}: card and CPU fusion disagree")
 
 
+def run_cli(label: str, argv, timeout: int):
+    """Run `python -m patchmatchnet_torch <argv>` from the checkout, killed
+    at `timeout` s. Returns (stdout, the kernel launches it printed,
+    seconds); fails on a non-zero exit or a timeout."""
+    import ast
+
+    start = time.perf_counter()
+    try:
+        proc = subprocess.run([sys.executable, "-m", "patchmatchnet_torch", *argv], cwd=REPO,
+                              capture_output=True, text=True, timeout=timeout)
+    except subprocess.TimeoutExpired:
+        fail(f"CLI {label}: no result within {timeout} s")
+    seconds = time.perf_counter() - start
+    if proc.returncode != 0:
+        print("\n".join((proc.stdout + proc.stderr).splitlines()[-30:]), flush=True)
+        fail(f"CLI {label} exited with {proc.returncode}")
+    counts = {}
+    for line in proc.stdout.splitlines():
+        if line.startswith("kernel launches: "):
+            counts = ast.literal_eval(line[len("kernel launches: "):])
+    print(f"CLI {label}: {seconds:.2f} s in all (process start, model, kernels' library load "
+          f"included); kernel launches {counts}", flush=True)
+    return proc.stdout, counts, seconds
+
+
+def forward_launches(views: int, evaluations: int) -> dict:
+    """Hand-kernel launches of one inference forward: K1 per source view on
+    the first evaluation, K6 on every later one, K2 on every one, K3 once a
+    stage."""
+    return {"warp_group_corr": views, "warp_group_corr_views": evaluations - 1,
+            "eval_grid_score": evaluations, "neighbor_group_corr": 3}
+
+
+def step_launches(views: int, evaluations: int) -> dict:
+    """Hand-kernel launches of one train step: K1 and K4 per source view on
+    every evaluation, K3 and K5 once a stage (the training tail is plain)."""
+    return {"warp_group_corr": views * evaluations,
+            "warp_group_corr_backward": views * evaluations,
+            "neighbor_group_corr": 3, "neighbor_group_corr_backward": 3}
+
+
+def expect_launches(label: str, counts, parts) -> None:
+    """Fail unless `counts` is the sum of (times, launches) parts."""
+    want = {}
+    for times, launches in parts:
+        for name, n in launches.items():
+            want[name] = want.get(name, 0) + times * n
+    want = {k: v for k, v in want.items() if v}
+    if counts != want:
+        fail(f"CLI {label} launched {counts}, expected {want}")
+
+
+def best_first_pairs(scene: str) -> None:
+    """Rewrite a synthetic scene's pair.txt with each reference's sources
+    best first (score 10 - |s - v|), as DTU's pair.txt lists them."""
+    from patchmatchnet_torch.data import read_pair_file, save_pair_file
+
+    path = os.path.join(scene, "pair.txt")
+    save_pair_file(path, [(v, [(s, 10.0 - abs(s - v))
+                               for s in sorted(srcs, key=lambda s: abs(s - v))])
+                          for v, srcs in read_pair_file(path)])
+
+
+def cli_path(device, scratch, smi) -> None:
+    """Phase 12: the command line on the card, three runs of
+    `python -m patchmatchnet_torch`, each its own process with its own
+    timeout. (a) eval at scripts/eval.sh's DTU preset on a 7-view 1600x1200
+    scan: every map, the fused cloud near the plane, and the CLI's map of
+    view 0 against DepthEstimator in this process; (b) train with
+    scripts/train.sh's flags that apply (B = 8, one epoch of 3 steps,
+    640x512) from the released weights; (c) the variant configuration
+    (VARIANT_FLAGS) trained one epoch from scratch at 640x512, B = 2, then
+    evaluated from the module it wrote at 1152x864, 1 + 4 views."""
+    import re
+
+    import numpy as np
+    import torch
+    from PIL import Image
+
+    from patchmatchnet_torch.config import Config
+    from patchmatchnet_torch.data import (
+        PLANE_Z,
+        BatchLoader,
+        MVSDataset,
+        make_synthetic_scene,
+        read_pfm,
+        read_ply,
+    )
+    from patchmatchnet_torch.infer import DepthEstimator
+    from patchmatchnet_torch.train.driver import build_model, load_any_checkpoint
+
+    # (a) eval, DTU preset: 7 views of 1600x1200, 1 + 5 views per map
+    root = os.path.join(scratch, "dtu")
+    scan = os.path.join(root, CLI_EVAL_SCAN)
+    make_synthetic_scene(scan, num_views=CLI_EVAL_VIEWS, height=CLI_EVAL_H, width=CLI_EVAL_W,
+                         texture_scale=CLI_EVAL_TEXTURE)
+    best_first_pairs(scan)
+    scan_list = os.path.join(root, "test.txt")
+    with open(scan_list, "w") as f:
+        f.write(CLI_EVAL_SCAN + "\n")
+    out = os.path.join(scratch, "dtu_out")
+    stdout, counts, seconds = run_cli(
+        "eval (DTU preset)", ["eval", "--input_folder", root, "--output_folder", out,
+                              "--checkpoint_path", CKPT, "--scan_list", scan_list,
+                              "--image_extension", ".png", *DTU_EVAL_FLAGS], CLI_TIMEOUT)
+    maps = re.search(r"Wrote (\d+) depth/confidence map pairs in ([\d.]+) s \(([\d.]+) ms per "
+                     r"map\); request ms: first ([\d.]+) \(set-up included\), then median ([\d.]+)",
+                     stdout)
+    fused = re.search(r"Fused (\S+) in ([\d.]+) s", stdout)
+    if not maps or not fused or int(maps.group(1)) != CLI_EVAL_VIEWS:
+        fail(f"CLI eval printed no map or fusion timing for {CLI_EVAL_VIEWS} views")
+    expect_launches("eval (DTU preset)", counts,
+                    [(CLI_EVAL_VIEWS, forward_launches(CLI_EVAL_SOURCES, 5))])
+    errs = []
+    for v in range(CLI_EVAL_VIEWS):
+        depth = read_pfm(os.path.join(out, CLI_EVAL_SCAN, "depth_est", f"{v:08d}.pfm"))[..., 0]
+        conf = read_pfm(os.path.join(out, CLI_EVAL_SCAN, "confidence", f"{v:08d}.pfm"))[..., 0]
+        for name, m in (("depth", depth), ("confidence", conf)):
+            if m.shape != (CLI_EVAL_H, CLI_EVAL_W) or not np.isfinite(m).all():
+                fail(f"CLI eval view {v}: {name} map {m.shape}, finite {np.isfinite(m).all()}")
+        final = np.asarray(Image.open(os.path.join(out, CLI_EVAL_SCAN, "mask",
+                                                   f"{v:08d}_final.png"))) > 0
+        errs.append((float(np.median(np.abs(depth[final] - PLANE_Z))) if final.any()
+                     else float("nan"), float(final.mean())))
+    xyz, _ = read_ply(fused.group(1))
+    z_err = float(np.median(np.abs(xyz[:, 2] - PLANE_Z))) if xyz.shape[0] else float("inf")
+    print(f"CLI eval {CLI_EVAL_W}x{CLI_EVAL_H}, {CLI_EVAL_VIEWS} views, 1 + {CLI_EVAL_SOURCES} "
+          f"views per map: {float(maps.group(3)):.2f} ms per map ({maps.group(2)} s for "
+          f"{maps.group(1)} maps; requests: the first {maps.group(4)} ms with its set-up, then "
+          f"median {maps.group(5)} ms); fusion "
+          f"{float(fused.group(2)) * 1e3 / CLI_EVAL_VIEWS:.2f} ms per fused view "
+          f"({fused.group(2)} s); "
+          f"{xyz.shape[0]} points, median |z - plane| {z_err:.4f}; median |depth - plane| on the "
+          "final mask (mask share) per view: "
+          + " ".join(f"{e:.4f} ({m:.2f})" for e, m in errs) + f"; card {smi}", flush=True)
+    if not all(math.isfinite(e) and e <= 0.05 * PLANE_Z for e, _ in errs):
+        fail("CLI eval: a view's median depth error on its final mask is above 5% of the plane")
+    if xyz.shape[0] == 0 or z_err > 0.05 * PLANE_Z:
+        fail(f"CLI eval: fused.ply has {xyz.shape[0]} points, median |z - plane| {z_err:.4f}")
+
+    # view 0 through DepthEstimator in this process: the same weights,
+    # inputs and noise (seed 0, the first draw)
+    model = build_model(Config(), inference=True)
+    model.load_state_dict(load_any_checkpoint(CKPT), strict=True)
+    estimator = DepthEstimator(model, device=device)
+    dataset = MVSDataset(root, CLI_EVAL_SOURCES, ".png", max_dim=CLI_EVAL_W, scan_list=scan_list)
+    batch = next(iter(BatchLoader(dataset, 1, num_threads=1)))
+    depth = estimator(batch, torch.Generator(device=device).manual_seed(0))[0][0]
+    cli_depth = read_pfm(os.path.join(out, CLI_EVAL_SCAN, "depth_est", "00000000.pfm"))[..., 0]
+    diff = np.abs(depth - cli_depth)
+    off = float((diff > 1e-3 * (1.3 - 0.8) * PLANE_Z).mean())
+    print(f"CLI view 0 against DepthEstimator in this process: max |diff| {diff.max():.3e}, "
+          f"median {np.median(diff):.3e}, share of pixels off by more than 1e-3 of the depth "
+          f"range {off:.2e}", flush=True)
+    if np.median(diff) != 0.0 or off > 1e-3:
+        fail("CLI view 0 differs from DepthEstimator (bounds: median 0, at most 0.1% of the "
+             "pixels off by more than 1e-3 of the depth range)")
+    # this process's steady state at the same preset, beside the CLI's
+    ms = []
+    for batch in BatchLoader(dataset, 1):
+        torch.cuda.synchronize()
+        start = time.perf_counter()
+        estimator(batch, torch.Generator(device=device).manual_seed(0))
+        ms.append((time.perf_counter() - start) * 1e3)
+    print("DepthEstimator in this process, same preset, warm: ms per map "
+          + " ".join(f"{t:.2f}" for t in ms) + f" (median {statistics.median(ms):.2f})",
+          flush=True)
+    del estimator, model
+    torch.cuda.empty_cache()
+
+    # (b) train, scripts/train.sh's flags that apply: B = 8, one epoch
+    train_root = os.path.join(scratch, "train")
+    make_synthetic_scene(os.path.join(train_root, CLI_TRAIN_SCAN), num_views=CLI_TRAIN_VIEWS,
+                         height=TRAIN_H, width=TRAIN_W, texture_scale=8.0)
+    best_first_pairs(os.path.join(train_root, CLI_TRAIN_SCAN))
+    train_list = os.path.join(train_root, "train.txt")
+    with open(train_list, "w") as f:
+        f.write(CLI_TRAIN_SCAN + "\n")
+    lists = ["--train_list", train_list, "--test_list", train_list]
+    out = os.path.join(scratch, "train_out")
+    _, counts, _ = run_cli("train (B 8)", [
+        "train", "--input_folder", train_root, "--output_folder", out, *lists,
+        "--image_extension", ".png", "--batch_size", str(CLI_TRAIN_BATCH), "--epochs", "1",
+        "--checkpoint_path", CKPT, "--summary_freq", "1"], CLI_TIMEOUT)
+    steps = CLI_TRAIN_VIEWS // CLI_TRAIN_BATCH
+    records = read_training_run(out, steps)
+    print(f"CLI train {TRAIN_W}x{TRAIN_H}, 1 + 5 views, B {CLI_TRAIN_BATCH}, {steps} steps: ms per "
+          "step " + " ".join(f"{r['step_ms']:.2f}" for r in records) + ", losses "
+          + " ".join(f"{r['loss']:.5f}" for r in records)
+          + f", peak {records[-1].get('peak_mib', float('nan')):.1f} MiB; card {smi}", flush=True)
+    expect_launches("train (B 8)", counts, [(steps, step_launches(5, 5)),
+                                            (steps, forward_launches(5, 5))])
+
+    # (c) the variant configuration: one epoch from scratch, B = 2, then
+    # eval from the module it wrote at 1152x864, 1 + 4 views
+    out = os.path.join(scratch, "variant_out")
+    _, counts, _ = run_cli("train (variant)", [
+        "train", "--input_folder", train_root, "--output_folder", out, *lists,
+        "--image_extension", ".png", "--batch_size", "2", "--epochs", "1", "--summary_freq", "1",
+        *VARIANT_FLAGS], CLI_TIMEOUT)
+    steps = CLI_TRAIN_VIEWS // 2
+    records = read_training_run(out, steps)
+    expect_launches("train (variant)", counts, [(steps, step_launches(5, 5)),
+                                                (steps, forward_launches(5, 5))])
+    eval_root = os.path.join(scratch, "variant_scene")
+    make_synthetic_scene(eval_root, num_views=MAIN_VIEWS, height=MAIN_H, width=MAIN_W,
+                         texture_scale=8.0)
+    eval_out = os.path.join(scratch, "variant_eval")
+    stdout, counts, _ = run_cli("eval (variant)", [
+        "eval", "--input_folder", eval_root, "--output_folder", eval_out, "--output_type", "depth",
+        "--checkpoint_path", os.path.join(out, "module_000000.pt"), "--num_views",
+        str(MAIN_VIEWS - 1), "--image_extension", ".png", *VARIANT_FLAGS], CLI_TIMEOUT)
+    expect_launches("eval (variant)", counts,
+                    [(MAIN_VIEWS, forward_launches(MAIN_VIEWS - 1, 5))])
+    errs = []
+    for v in range(MAIN_VIEWS):
+        depth = read_pfm(os.path.join(eval_out, "depth_est", f"{v:08d}.pfm"))[..., 0]
+        if depth.shape != (MAIN_H, MAIN_W) or not np.isfinite(depth).all():
+            fail(f"CLI variant eval view {v}: depth map {depth.shape}, finite "
+                 f"{np.isfinite(depth).all()}")
+        errs.append(float(np.median(np.abs(depth - PLANE_Z))))
+    maps = re.search(r"then median ([\d.]+)", stdout)
+    print("CLI variant: train losses " + " ".join(f"{r['loss']:.5f}" for r in records)
+          + f" ({steps} steps, one epoch from scratch), eval "
+          f"{MAIN_W}x{MAIN_H} 1 + {MAIN_VIEWS - 1} views, requests after the first: median "
+          f"{maps.group(1) if maps else '?'} ms per map; median |depth - plane| per map (not "
+          "gated: one epoch of training) "
+          + " ".join(f"{e:.4f}" for e in errs), flush=True)
+
+
+def read_training_run(out: str, steps: int):
+    """The train records of a CLI training run (metrics.jsonl), after
+    checking its checkpoint set, a finite loss logged for each of its
+    `steps` steps (run with --summary_freq 1) and a validation."""
+    for name in ("params_000000.ckpt.pt", "module_000000.pt", "config.json", "metrics.jsonl"):
+        if not os.path.isfile(os.path.join(out, name)):
+            fail(f"CLI train wrote no {name}")
+    with open(os.path.join(out, "metrics.jsonl")) as f:
+        records = [json.loads(line) for line in f]
+    train = [r for r in records if r["mode"] == "train"]
+    if len(train) != steps or not all(math.isfinite(r["loss"]) for r in train):
+        fail(f"CLI train logged {len(train)} steps, losses {[r['loss'] for r in train]}")
+    if not any(r["mode"] == "full_test" for r in records):
+        fail("CLI train logged no validation")
+    return train
+
+
 def main() -> int:
     if not os.path.isdir(os.path.join(REPO, "patchmatchnet_torch")):
         fail("run from a checkout of the repository (patchmatchnet_torch/ not found)")
@@ -1290,6 +1844,14 @@ def main() -> int:
         reconstruction_path(device, state_dict, scene, smi)
     finally:
         shutil.rmtree(scene, ignore_errors=True)
+
+    phase("CLI path: python -m patchmatchnet_torch eval (DTU preset, 1600x1200, 1 + 5 views), "
+          "train (B 8), and train + eval of a non-default configuration")
+    scratch = tempfile.mkdtemp(prefix="smoke_cli_", dir=os.path.join(REPO, "build"))
+    try:
+        cli_path(device, scratch, smi)
+    finally:
+        shutil.rmtree(scratch, ignore_errors=True)
 
     kernels = []
     for name, (src, replaces) in KERNEL_INFO.items():

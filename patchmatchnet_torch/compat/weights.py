@@ -15,7 +15,11 @@ package is needed.
 - BatchNorm params scale/bias -> weight/bias, batch_stats mean/var ->
   running_mean/running_var.
 The port's module tree mirrors the flax tree, so a leaf at
-params/a/b/kernel becomes the key "a.b.weight".
+params/a/b/kernel becomes the key "a.b.weight". Shapes are carried as the
+tree holds them, so the variables of any supported model configuration
+(the offset convs' widths follow its neighbour counts, and stage 1 has a
+propagation conv only where it propagates) load into
+`PatchmatchNet(model_config)` of the same configuration.
 
 `tensors_from_jax_params` applies the same rules to any params-shaped tree
 (gradients, Adam moments), and `train_state_from_jax` maps a JAX training

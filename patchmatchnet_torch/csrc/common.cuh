@@ -64,8 +64,8 @@ struct TileLayout {
   static_assert(C % KC == 0 && KC % N == 0 && KC % CG == 0 && 32 % L == 0, "lane layout");
 };
 
-// Eval-grid neighbours a block of K3 or K5 takes for each of its pixels
-// (the model has 9).
+// Eval-grid neighbours a block of K3 or K5 takes for each of its pixels:
+// Ke = 9 in one block, Ke = 17 in two (9 and 8).
 constexpr int kGridChunk = 9;
 
 __device__ __forceinline__ float to_float(float v) { return v; }

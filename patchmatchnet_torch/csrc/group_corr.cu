@@ -52,11 +52,11 @@
 // - Tile. A block of 256 threads owns TX = 256 / L consecutive reference
 //   pixels (row-major over H x W, so a tile may cross a row) and a chunk
 //   of samples per pixel: kHypChunk hypotheses (K1, K6, K7) or kGridChunk
-//   eval-grid neighbours (K3: all 9 of the model's). It reads the chunk's
-//   depths, coordinates (K7: ix, iy) or grid coordinates (K3: gx, gy), each
-//   view's projection and (K6) each pixel's view weights once, into shared
-//   memory; each lane reads its reference channels once, into registers,
-//   for every sample of the chunk.
+//   eval-grid neighbours (K3: all 9 where Ke = 9; 9 and 8 where 17). It
+//   reads the chunk's depths, coordinates (K7: ix, iy) or grid coordinates
+//   (K3: gx, gy), each view's projection and (K6) each pixel's view
+//   weights once, into shared memory; each lane reads its reference
+//   channels once, into registers, for every sample of the chunk.
 // - One warp per sample. A pixel's samples s = j * V + v (hypothesis or
 //   neighbour j, view v; K1, K3 and K7 have V = 1) go L at a time: lane p
 //   computes the cell of sample s0 + p, and the L lanes take each cell in

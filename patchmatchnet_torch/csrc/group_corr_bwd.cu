@@ -64,8 +64,9 @@
 // K5: `neighbor_corr_bwd_tile_kernel`, on K3's layout (common.cuh
 // `TileLayout`: a lane owns KC consecutive channels, whole 16-byte
 // vectors and whole groups; L = C / KC lanes hold one sample). A block owns TX
-// consecutive reference pixels and all 9 eval-grid neighbours
-// (`kGridChunk`), with (gx, gy) staged in shared memory. Each lane reads its
+// consecutive reference pixels and up to 9 eval-grid neighbours
+// (`kGridChunk`: all 9 where Ke = 9, 9 and 8 in two blocks where Ke = 17),
+// with (gx, gy) staged in shared memory. Each lane reads its
 // KC reference channels once per pixel, and per sample its own groups'
 // dout. Lane p of a pixel computes the border cell (`border_taps`, as K2 and
 // K3) of samples p, p + L, ... and shares it by shuffle; every lane reduces

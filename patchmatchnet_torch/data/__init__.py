@@ -1,5 +1,5 @@
-"""Host-side data layer: codecs, the MVS scene dataset and batch loader, and
-a synthetic scene with known depth."""
+"""Host-side data layer: codecs, the MVS scene dataset and batch loader, the
+raw DTU training layout, and a synthetic scene with known depth."""
 
 from patchmatchnet_torch.data.codecs import (
     read_bin,
@@ -20,11 +20,13 @@ from patchmatchnet_torch.data.codecs import (
     scale_to_max_dim,
     scaled_dims,
 )
+from patchmatchnet_torch.data.dtu_legacy import DTULegacyDataset
 from patchmatchnet_torch.data.mvs import BatchLoader, MVSDataset, adjust_sample_dims
 from patchmatchnet_torch.data.synthetic import PLANE_Z, make_synthetic_scene, plane_batch
 
 __all__ = [
     "BatchLoader",
+    "DTULegacyDataset",
     "MVSDataset",
     "PLANE_Z",
     "adjust_sample_dims",

@@ -12,7 +12,8 @@ source features directly, so no sample can leave a window.
 from __future__ import annotations
 
 import os
-from typing import Any, Dict, Iterable, Tuple, Union
+import time
+from typing import Any, Dict, Iterable, List, Optional, Tuple, Union
 
 import numpy as np
 import torch
@@ -26,11 +27,13 @@ from patchmatchnet_torch.ops.resize import resize_bilinear_maps, resize_nearest_
 class DepthEstimator:
     """PatchmatchNet inference on one explicit device.
 
-    The model runs as it was built, under `torch.inference_mode`, so every
-    evaluation call that has view weights makes one K6 launch in place of a
-    K1 launch per source view. `bucket_multiple` > 0 rounds (H, W) up to
+    The model runs as it was built (any configuration; the command line
+    builds it with `train.driver.build_model(cfg, inference=True)`), under
+    `torch.inference_mode`, so every evaluation call that has view weights
+    makes one K6 launch in place of a K1 launch per source view. `bucket_multiple` > 0 rounds (H, W) up to
     that multiple with edge-replicated padding and crops the outputs back
-    (see the reference); 0 keeps exact shapes."""
+    (see the reference; the command line's `--shape_bucket`); 0 keeps exact
+    shapes."""
 
     def __init__(self, model: PatchmatchNet, device: Union[str, torch.device],
                  bucket_multiple: int = 0):
@@ -84,15 +87,22 @@ def save_depth_maps(
     output_folder: str,
     seed: int = 0,
     file_format: str = ".pfm",
+    request_ms: Optional[List[float]] = None,
 ) -> int:
     """Run inference over a loader and write depth_est/ + confidence/ maps in
     `file_format` (.pfm or COLMAP .bin), named as the reference names them
     ("depth_est/{view:08d}.pfm" etc.). The stage-3 noise comes from one
-    torch.Generator seeded with `seed`. Returns the number of maps written."""
+    torch.Generator seeded with `seed`. With `request_ms`, appends each
+    estimator call's host milliseconds to it (the call returns host
+    arrays, so its device work is done). Returns the number of maps
+    written."""
     generator = torch.Generator(device=estimator.device).manual_seed(seed)
     count = 0
     for batch in loader:
+        start = time.perf_counter()
         depth, confidence = estimator(batch, generator)
+        if request_ms is not None:
+            request_ms.append((time.perf_counter() - start) * 1e3)
         for filename, d, c in zip(batch["filename"], depth, confidence):
             for folder, value in (("depth_est", d), ("confidence", c)):
                 save_map(os.path.join(output_folder, filename.format(folder, file_format)),

@@ -29,8 +29,9 @@ import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
+from patchmatchnet_torch.config import ModelConfig
 from patchmatchnet_torch.models.feature import FeatureNet
-from patchmatchnet_torch.models.patchmatch import INITIAL_NUM_SAMPLES, STAGE_CONFIG, PatchMatch
+from patchmatchnet_torch.models.patchmatch import INITIAL_NUM_SAMPLES, PatchMatch, stage_configs
 from patchmatchnet_torch.models.refinement import Refinement
 from patchmatchnet_torch.ops.resize import upsample_nearest_x2
 
@@ -49,17 +50,20 @@ def full_f32() -> Iterator[None]:
 
 
 class PatchmatchNet(nn.Module):
-    """The released model's cascade (stage settings in
-    `patchmatch.STAGE_CONFIG`); `compute_dtype` None runs f32, bf16 runs
-    bf16 payloads. It is built in eval (inference) mode; `.train()` selects
-    the training forward."""
+    """The cascade with the per-stage options of `model_config` (its six
+    per-stage tuples; its precision fields are read by
+    `train.driver.build_model`), the released model's
+    (`patchmatch.STAGE_CONFIG`) when None; `compute_dtype` None runs f32,
+    bf16 runs bf16 payloads. It is built in eval (inference) mode;
+    `.train()` selects the training forward."""
 
-    def __init__(self, compute_dtype: Optional[torch.dtype] = None):
+    def __init__(self, model_config: Optional[ModelConfig] = None,
+                 compute_dtype: Optional[torch.dtype] = None):
         super().__init__()
         self.compute_dtype = compute_dtype
         self.feature = FeatureNet(dtype=compute_dtype)
-        for stage in (1, 2, 3):
-            self.add_module(f"patchmatch_{stage}", PatchMatch(stage, dtype=compute_dtype))
+        for stage, cfg in stage_configs(model_config).items():
+            self.add_module(f"patchmatch_{stage}", PatchMatch(stage, cfg, dtype=compute_dtype))
         self.upsample_net = Refinement(dtype=compute_dtype)
         self.eval()
 
@@ -168,7 +172,7 @@ class PatchmatchNet(nn.Module):
     def _confidence(self, score: torch.Tensor) -> torch.Tensor:
         """Probability mass of the 4 hypotheses around the regressed index of
         the final stage-1 score [B, H/2, W/2, D] -> [B, H, W]."""
-        num_depth = STAGE_CONFIG[1].num_samples
+        num_depth = self.patchmatch_1.config.num_samples
         padded = F.pad(score, (1, 2))
         score_sum4 = sum(padded[..., i : i + num_depth] for i in range(4))
         index = (torch.arange(num_depth, dtype=score.dtype, device=score.device) * score).sum(-1)

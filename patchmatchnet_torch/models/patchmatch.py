@@ -33,11 +33,12 @@ reference's training tail is plain XLA.
 
 from __future__ import annotations
 
-from typing import List, NamedTuple, Optional, Sequence, Tuple
+from typing import Dict, List, NamedTuple, Optional, Sequence, Tuple
 
 import torch
 import torch.nn as nn
 
+from patchmatchnet_torch.config import ModelConfig
 from patchmatchnet_torch.models.layers import Conv2d, Dense1, DenseBnReLU, cast
 from patchmatchnet_torch.ops.eval_tail import eval_grid_score, eval_grid_score_reference
 from patchmatchnet_torch.ops.grid_sample import grid_sample_2d
@@ -46,7 +47,8 @@ from patchmatchnet_torch.ops.warp import warp_proj_coeffs
 from patchmatchnet_torch.ops.warp_similarity import warp_group_corr, warp_group_corr_views
 
 INITIAL_NUM_SAMPLES = 48  # stratified random inverse-depth samples on stage 3
-EVALUATE_NEIGHBORS = 9  # eval-grid neighbours (Ke) on every stage
+STAGE_FEATURES = {1: 16, 2: 32, 3: 64}  # feature channels C of each stage
+STAGE_GROUPS = {1: 4, 2: 8, 3: 8}  # correlation groups G of each stage
 
 
 class StageConfig(NamedTuple):
@@ -54,18 +56,30 @@ class StageConfig(NamedTuple):
     propagation_range: int  # dilation of the offset convs and neighbour grids
     iterations: int
     num_samples: int  # hypotheses per pixel after the first stage-3 iteration
-    propagate_neighbors: int  # 0: no propagation
+    propagate_neighbors: int  # 0: no propagation; else 4, 8 or 16
+    evaluate_neighbors: int  # eval-grid neighbours Ke: 9 or 17
     features: int  # feature channels C
     groups: int  # correlation groups G
 
 
+def stage_configs(model_config: Optional[ModelConfig] = None) -> Dict[int, StageConfig]:
+    """The three stages' settings from the per-stage tuples of a
+    `config.ModelConfig` (indexed stage 1, 2, 3, as the command line's
+    flags); None gives the released model's (`STAGE_CONFIG`)."""
+    m = model_config or ModelConfig()
+    options = (m.patchmatch_interval_scale, m.propagation_range, m.patchmatch_iteration,
+               m.patchmatch_num_sample, m.propagate_neighbors, m.evaluate_neighbors)
+    if any(len(values) != 3 for values in options):
+        raise ValueError(f"each per-stage option takes 3 values (stages 1, 2, 3): {m}")
+    return {stage: StageConfig(float(m.patchmatch_interval_scale[stage - 1]),
+                               *(int(values[stage - 1]) for values in options[1:]),
+                               STAGE_FEATURES[stage], STAGE_GROUPS[stage])
+            for stage in (1, 2, 3)}
+
+
 # The released model's stages (checkpoints/params_000007.msgpack; the
 # reference's defaults, patchmatchnet_tpu/models/net.py).
-STAGE_CONFIG = {
-    1: StageConfig(0.005, 6, 1, 8, 0, 16, 4),
-    2: StageConfig(0.0125, 4, 2, 8, 8, 32, 8),
-    3: StageConfig(0.025, 2, 2, 16, 16, 64, 8),
-}
+STAGE_CONFIG = stage_configs()
 
 Grid = Tuple[torch.Tensor, torch.Tensor]
 
@@ -109,18 +123,29 @@ def propagate(depth_sample: torch.Tensor, grid: Grid) -> torch.Tensor:
 
 
 def propagation_offsets(neighbors: int, dilation: int) -> List[Tuple[int, int]]:
-    """(y, x) offsets of the 8 propagation neighbours at `dilation`, plus,
-    for 16, the same ring at twice the dilation."""
+    """(y, x) offsets of the propagation neighbours at `dilation`: the 4
+    of a cross, the 8 of a ring, or for 16 the ring and the same ring at
+    twice the dilation (reference: `_fixed_offsets`)."""
+    if neighbors == 4:
+        return [(-dilation, 0), (0, -dilation), (0, dilation), (dilation, 0)]
+    if neighbors not in (8, 16):
+        raise NotImplementedError(f"propagate_neighbors={neighbors}")
     ring = [(y, x) for y in (-dilation, 0, dilation) for x in (-dilation, 0, dilation)
             if (y, x) != (0, 0)]
     return ring if neighbors == 8 else ring + [(2 * y, 2 * x) for (y, x) in ring]
 
 
-def evaluation_offsets(dilation: int) -> List[Tuple[int, int]]:
-    """(y, x) offsets of the 9 evaluation neighbours: the 3x3 pattern at
-    one less than the propagation dilation."""
+def evaluation_offsets(dilation: int, neighbors: int = 9) -> List[Tuple[int, int]]:
+    """(y, x) offsets of the evaluation neighbours: the 3x3 pattern at one
+    less than the propagation dilation, and for 17 its 8 non-centre
+    offsets doubled after it (reference: `_fixed_offsets`)."""
+    if neighbors not in (9, 17):
+        raise NotImplementedError(f"evaluate_neighbors={neighbors}")
     d = dilation - 1
-    return [(y, x) for y in (-d, 0, d) for x in (-d, 0, d)]
+    square = [(y, x) for y in (-d, 0, d) for x in (-d, 0, d)]
+    if neighbors == 9:
+        return square
+    return square + [(2 * y, 2 * x) for (y, x) in square if (y, x) != (0, 0)]
 
 
 def build_offset_grid(offset: torch.Tensor, fixed: Sequence[Tuple[int, int]],
@@ -288,18 +313,28 @@ class Evaluation(nn.Module):
 
 
 class PatchMatch(nn.Module):
-    """One cascade stage of iterative learned PatchMatch, configured as the
-    released model's stage `stage` (see STAGE_CONFIG)."""
+    """One cascade stage of iterative learned PatchMatch, configured by
+    `config` (the released model's stage `stage` when None; see
+    STAGE_CONFIG). As in the reference, propagation runs where the stage
+    has propagation neighbours, except on stage 1's last iteration (so never
+    on a stage 1 of one iteration), and the propagation offset conv exists
+    only where propagation runs. Neighbour counts outside the reference's
+    patterns raise NotImplementedError."""
 
-    def __init__(self, stage: int, dtype: Optional[torch.dtype] = None):
+    def __init__(self, stage: int, config: Optional[StageConfig] = None,
+                 dtype: Optional[torch.dtype] = None):
         super().__init__()
         self.stage = stage
-        self.config = cfg = STAGE_CONFIG[stage]
+        self.config = cfg = config or STAGE_CONFIG[stage]
         d = cfg.propagation_range
-        if cfg.propagate_neighbors:
+        self.has_propagation = cfg.propagate_neighbors > 0 and not (
+            stage == 1 and cfg.iterations == 1)
+        self.eval_offsets = evaluation_offsets(d, cfg.evaluate_neighbors)
+        if self.has_propagation:
+            self.propa_offsets = propagation_offsets(cfg.propagate_neighbors, d)
             self.propa_conv = Conv2d(cfg.features, 2 * cfg.propagate_neighbors, 3,
                                      pad=d, dilation=d, dtype=dtype, zero_init=True)
-        self.eval_conv = Conv2d(cfg.features, 2 * EVALUATE_NEIGHBORS, 3,
+        self.eval_conv = Conv2d(cfg.features, 2 * cfg.evaluate_neighbors, 3,
                                 pad=d, dilation=d, dtype=dtype, zero_init=True)
         self.evaluation = Evaluation(cfg.groups, pixel_wise=stage == 3, dtype=dtype)
 
@@ -326,14 +361,12 @@ class PatchMatch(nn.Module):
         cfg = self.config
         b, h, w, _ = ref_feature.shape
         ref_nchw = ref_feature.permute(0, 3, 1, 2)  # channels_last view
-        d = cfg.propagation_range
         propa_grid = None
-        if cfg.propagate_neighbors:
+        if self.has_propagation:
             offset = self.propa_conv(ref_nchw).float().permute(0, 2, 3, 1)
-            propa_grid = build_offset_grid(
-                offset, propagation_offsets(cfg.propagate_neighbors, d), h, w)
+            propa_grid = build_offset_grid(offset, self.propa_offsets, h, w)
         offset = self.eval_conv(ref_nchw).float().permute(0, 2, 3, 1)
-        eval_grid = build_offset_grid(offset, evaluation_offsets(d), h, w)
+        eval_grid = build_offset_grid(offset, self.eval_offsets, h, w)
         mats = warp_proj_coeffs(torch.stack(list(src_projs), 1), ref_proj[:, None])
         warp_mats = [m.contiguous() for m in mats.unbind(1)]  # V x [B, 12]
 
@@ -347,10 +380,12 @@ class PatchMatch(nn.Module):
                 if init_noise is None:
                     raise ValueError("stage-3 initialization needs init_noise")
                 depth_sample = init_random_depth(init_noise, depth_min, depth_max)
+            elif cfg.num_samples == 1:
+                depth_sample = depth.detach()[:, None]
             else:
                 depth_sample = init_perturbed_depth(
                     depth, depth_min, depth_max, cfg.num_samples, cfg.interval_scale)
-            if propa_grid is not None:
+            if propa_grid is not None and not (self.stage == 1 and it == cfg.iterations):
                 depth_sample = propagate(depth_sample, propa_grid)
             depth_sample = depth_sample.contiguous()
 

@@ -1,11 +1,18 @@
 """Training driver: epochs, warm start and resume, logging, checkpoints and
 validation on one device (reference: `patchmatchnet_tpu/train/driver.py`).
 
-Per epoch it trains on a shuffled, drop-last loader of the train scans,
-writes `params_{epoch:06d}.ckpt.pt` (full training state) and
+Per epoch it trains on a shuffled, drop-last loader of the train scans
+(the unified layout's `MVSDataset`, or the raw DTU layout's
+`DTULegacyDataset` with `cfg.data.dataset == "dtu_legacy"`), writes
+`params_{epoch:06d}.ckpt.pt` (full training state) and
 `module_{epoch:06d}.pt` (model state dict, for inference) every `save_freq`
 epochs, and validates on the test scans with running statistics. Scalars go
-to `<output_folder>/metrics.jsonl` (and TensorBoard when importable).
+to `<output_folder>/metrics.jsonl` (and TensorBoard when importable), with
+the logged step's data and step wall times (`utils.profiling.PhaseTimer`,
+which waits for the device only at the end of a logged or traced step, as
+the reference blocks only where it reads); each epoch prints the phases'
+means. `profile_dir` captures a torch.profiler trace of the first epoch's
+second step.
 
 The stage-3 noise of global step s is drawn from a generator seeded with
 (rand_seed, s), and the loader's order and view choice depend on (seed,
@@ -16,14 +23,17 @@ and noise the uninterrupted run would have used.
 from __future__ import annotations
 
 import os
-import time
 from typing import Any, Dict, List
 
 import torch
 
-from patchmatchnet_torch.compat import read_flax_msgpack, state_dict_from_jax
+from patchmatchnet_torch.compat import (
+    convert_torch_checkpoint,
+    read_flax_msgpack,
+    state_dict_from_jax,
+)
 from patchmatchnet_torch.config import Config
-from patchmatchnet_torch.data import BatchLoader, MVSDataset
+from patchmatchnet_torch.data import BatchLoader, DTULegacyDataset, MVSDataset
 from patchmatchnet_torch.models import PatchmatchNet
 from patchmatchnet_torch.models.patchmatch import INITIAL_NUM_SAMPLES
 from patchmatchnet_torch.train.loop import (
@@ -38,27 +48,40 @@ from patchmatchnet_torch.train.loop import (
 )
 from patchmatchnet_torch.utils.logging import MetricsLogger
 from patchmatchnet_torch.utils.metrics import DictAverageMeter
+from patchmatchnet_torch.utils.profiling import PhaseTimer, torch_trace
 
 _NOISE_STRIDE = 1000003
 
 
-def build_model(cfg: Config) -> PatchmatchNet:
-    precision = cfg.model.train_precision
+def build_model(cfg: Config, inference: bool = False) -> PatchmatchNet:
+    """The model of `cfg.model`'s per-stage options, in the precision of
+    `cfg.model.precision` (inference) or `train_precision` (training)."""
+    knob = "precision" if inference else "train_precision"
+    precision = getattr(cfg.model, knob)
     if precision not in ("bf16", "f32"):
-        raise ValueError(f"train_precision must be bf16 or f32, got {precision!r}")
-    return PatchmatchNet(compute_dtype=torch.bfloat16 if precision == "bf16" else None)
+        raise ValueError(f"{knob} must be bf16 or f32, got {precision!r}")
+    return PatchmatchNet(cfg.model,
+                         compute_dtype=torch.bfloat16 if precision == "bf16" else None)
+
+
+def load_any_checkpoint(path: str) -> Dict[str, torch.Tensor]:
+    """Inference weights as the port's state dict, from a flax `.msgpack`
+    (variables {params, batch_stats}, or those of a JAX training
+    checkpoint), a reference PyTorch `.ckpt` (`compat.torch_convert`), or
+    any other file as the port writes it with `torch.save`: a
+    `module_*.pt` state dict or a training checkpoint (its model part)."""
+    if path.endswith(".msgpack"):
+        tree = read_flax_msgpack(path)
+        return state_dict_from_jax({k: tree[k] for k in ("params", "batch_stats") if k in tree})
+    if path.endswith(".ckpt"):
+        return convert_torch_checkpoint(path)
+    state = torch.load(path, map_location="cpu", weights_only=True)
+    return state.get("model", state)
 
 
 def load_model_weights(model: PatchmatchNet, path: str) -> None:
-    """Warm start from inference weights: a flax `.msgpack` of {params,
-    batch_stats}, a `module_*.pt` state dict, or a port training
-    checkpoint (its model part)."""
-    if path.endswith(".msgpack"):
-        state = state_dict_from_jax(read_flax_msgpack(path))
-    else:
-        state = torch.load(path, map_location="cpu", weights_only=True)
-        state = state.get("model", state)
-    model.load_state_dict(state, strict=True)
+    """Warm start `model` from any checkpoint `load_any_checkpoint` reads."""
+    model.load_state_dict(load_any_checkpoint(path), strict=True)
 
 
 def step_noise(batch: Dict[str, torch.Tensor], seed: int, step: int) -> torch.Tensor:
@@ -69,17 +92,28 @@ def step_noise(batch: Dict[str, torch.Tensor], seed: int, step: int) -> torch.Te
     return torch.rand((b, INITIAL_NUM_SAMPLES, h // 8, w // 8), generator=gen, device=dev)
 
 
-def run_training(cfg: Config) -> List[Dict[str, Any]]:
+def run_training(cfg: Config, profile_dir: str = "") -> List[Dict[str, Any]]:
     """Train as configured; returns the logged train records (one per
-    `summary_freq` steps: loss, metrics, lr, step_ms, data_ms)."""
+    `summary_freq` steps: loss, metrics, lr, step_ms, data_ms). With
+    `profile_dir`, writes a trace of the first epoch's second step (its
+    only step if it has one) to `profile_dir/trace.json`."""
     t, d = cfg.train, cfg.data
     device = torch.device(t.device)
     if device.type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError(f"device {device} requested but CUDA is not available")
+    if t.ckpt_backend != "msgpack":
+        raise ValueError(f"ckpt_backend {t.ckpt_backend!r}: the port checkpoints with "
+                         "torch.save (the default, 'msgpack'); orbax is the JAX package's "
+                         "backend and stays out of the port (ROADMAP item 12)")
+    if d.dataset not in ("unified", "dtu_legacy"):
+        raise ValueError(f"dataset must be unified or dtu_legacy, got {d.dataset!r}")
     os.makedirs(t.output_folder, exist_ok=True)
     cfg.save(os.path.join(t.output_folder, "config.json"))
 
-    def dataset(scan_list: str, robust: bool) -> MVSDataset:
+    def dataset(scan_list: str, robust: bool):
+        if d.dataset == "dtu_legacy":  # num_views counts the reference view
+            return DTULegacyDataset(d.input_folder, scan_list, num_views=d.num_views,
+                                    robust_train=robust, seed=t.rand_seed)
         return MVSDataset(d.input_folder, d.num_views, d.image_extension,
                           max_dim=d.image_max_dim, scan_list=scan_list,
                           num_light_idx=d.num_light_idx, robust_train=robust,
@@ -110,29 +144,38 @@ def run_training(cfg: Config) -> List[Dict[str, Any]]:
 
     logger = MetricsLogger(t.output_folder)
     history: List[Dict[str, Any]] = []
+    timer = PhaseTimer(device)
+    traced_step = min(1, steps_per_epoch - 1)
     try:
         for epoch in range(start_epoch, t.epochs):
             train_loader.set_epoch(epoch)
-            tick = time.perf_counter()
-            for batch_idx, batch in enumerate(train_loader):
+            batches = iter(train_loader)
+            for batch_idx in range(steps_per_epoch):
                 global_step = epoch * steps_per_epoch + batch_idx
-                tensors = batch_to_device(batch, device)
-                start = time.perf_counter()
+                with timer("data", sync=False):
+                    tensors = batch_to_device(next(batches), device)
                 lr = schedule(global_step)
-                metrics, images = train_step(model, optimizer, tensors, lr,
-                                             step_noise(tensors, t.rand_seed, global_step))
-                if global_step % t.summary_freq == 0:
-                    record = {k: float(v) for k, v in metrics.items()}  # waits for the step
-                    done = time.perf_counter()
-                    record.update(lr=lr, step_ms=(done - start) * 1e3, data_ms=(start - tick) * 1e3)
+                capture = bool(profile_dir) and epoch == start_epoch and batch_idx == traced_step
+                logged = global_step % t.summary_freq == 0
+                with torch_trace(profile_dir if capture else None), \
+                        timer("step", sync=capture or logged):
+                    metrics, images = train_step(model, optimizer, tensors, lr,
+                                                 step_noise(tensors, t.rand_seed, global_step))
+                if logged:
+                    record = {k: float(v) for k, v in metrics.items()}
+                    record.update(lr=lr, step_ms=timer.last["step"] * 1e3,
+                                  data_ms=timer.last["data"] * 1e3)
+                    if device.type == "cuda":
+                        record["peak_mib"] = torch.cuda.max_memory_allocated(device) / 2**20
                     logger.scalars("train", record, global_step)
                     history.append(dict(record, step=global_step))
+                    peak = f", peak {record['peak_mib']:.1f} MiB" if "peak_mib" in record else ""
                     print(f"Epoch {epoch + 1}/{t.epochs}, Iter {batch_idx + 1}/{steps_per_epoch}, "
-                          f"loss = {record['loss']:.3f}, step {record['step_ms']:.1f} ms")
+                          f"loss = {record['loss']:.3f}, step {record['step_ms']:.1f} ms{peak}")
                 if global_step % (50 * t.summary_freq) == 0:
                     for name, img in images.items():
                         logger.image("train", name, img[0].float().cpu().numpy(), global_step)
-                tick = time.perf_counter()
+            print(f"epoch phases: {timer.summary()}")
 
             if (epoch + 1) % t.save_freq == 0:
                 step = (epoch + 1) * steps_per_epoch

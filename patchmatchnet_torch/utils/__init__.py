@@ -1,4 +1,4 @@
-"""Metrics and logging of the training driver."""
+"""Metrics, logging and profiling of the training driver."""
 
 from patchmatchnet_torch.utils.logging import MetricsLogger
 from patchmatchnet_torch.utils.metrics import (
@@ -6,5 +6,7 @@ from patchmatchnet_torch.utils.metrics import (
     absolute_depth_error,
     threshold_error,
 )
+from patchmatchnet_torch.utils.profiling import PhaseTimer, torch_trace
 
-__all__ = ["DictAverageMeter", "MetricsLogger", "absolute_depth_error", "threshold_error"]
+__all__ = ["DictAverageMeter", "MetricsLogger", "PhaseTimer", "absolute_depth_error",
+           "threshold_error", "torch_trace"]

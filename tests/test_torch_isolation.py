@@ -35,6 +35,11 @@ def _run(code, cwd=REPO):
 
 
 SCRIPTS = ["chip_smoke.py", os.path.join("tools", "dev", "profile_torch_main.py")]
+# every module of the port, the command line (cli.py, __main__.py) included
+PACKAGE_FILES = sorted(
+    os.path.relpath(os.path.join(root, name), REPO)
+    for root, _, names in os.walk(os.path.join(REPO, "patchmatchnet_torch"))
+    for name in names if name.endswith(".py"))
 FORBIDDEN = ("jax", "jaxlib", "flax", "patchmatchnet_tpu", "scene_utils", "tests")
 
 
@@ -52,11 +57,13 @@ def _script_imports(path):
 
 
 def test_port_imports_no_jax():
-    """Neither the port (its gather tool, fusion and DTU protocol too) nor
-    the scripts that drive it (chip_smoke.py and the profiling tool,
-    including imports inside their functions) name or load a module of JAX,
-    flax or the JAX package."""
-    named = set().union(*(_script_imports(p) for p in SCRIPTS))
+    """Neither the port (its gather tool, fusion, DTU protocol, command line,
+    converter, raw DTU dataset and profiling too) nor the scripts that drive
+    it (chip_smoke.py and the profiling tool, including imports inside their
+    functions) name or load a module of JAX, flax or the JAX package."""
+    assert "patchmatchnet_torch/cli.py" in PACKAGE_FILES
+    assert "patchmatchnet_torch/__main__.py" in PACKAGE_FILES
+    named = set().union(*(_script_imports(p) for p in SCRIPTS + PACKAGE_FILES))
     assert not sorted(m for m in named if m.split(".")[0] in FORBIDDEN)
     modules = sorted(m for m in named if m.split(".")[0] == "patchmatchnet_torch")
     proc = _run(
@@ -66,7 +73,9 @@ def test_port_imports_no_jax():
         "import patchmatchnet_torch.train, patchmatchnet_torch.utils, patchmatchnet_torch.config\n"
         "import patchmatchnet_torch.dev.bench_gather\n"
         "import patchmatchnet_torch.geometry, patchmatchnet_torch.eval_protocols\n"
-        "import patchmatchnet_torch.infer.fusion\n"
+        "import patchmatchnet_torch.infer.fusion, patchmatchnet_torch.cli\n"
+        "import patchmatchnet_torch.__main__, patchmatchnet_torch.compat.torch_convert\n"
+        "import patchmatchnet_torch.data.dtu_legacy, patchmatchnet_torch.utils.profiling\n"
         f"for m in {modules!r}:\n"
         "    importlib.import_module(m)\n"
         "import chip_smoke\n"

@@ -153,14 +153,14 @@ def test_autograd_runs_the_backward_kernels(device):
         ops.neighbor_group_corr(ref, grid, 8)
 
 
-def _grid_case(device, b, h, w, where, seed):
-    """Eval grid [b, 9, h, w] x 2 from `build_offset_grid`: offsets of a few
-    pixels ("near"), or so large that most neighbours lie far off the image
-    and are clamped to its border ("far")."""
+def _grid_case(device, b, h, w, where, seed, ke=9):
+    """Eval grid [b, ke, h, w] x 2 from `build_offset_grid` (Ke = 9 or 17
+    neighbours): offsets of a few pixels ("near"), or so large that most
+    neighbours lie far off the image and are clamped to its border ("far")."""
     gen = torch.Generator(device=device).manual_seed(seed)
     scale = 3.0 if where == "near" else 60.0
-    offset = torch.randn((b, h, w, 18), generator=gen, device=device) * scale
-    return build_offset_grid(offset, evaluation_offsets(2), h, w), gen
+    offset = torch.randn((b, h, w, 2 * ke), generator=gen, device=device) * scale
+    return build_offset_grid(offset, evaluation_offsets(2, ke), h, w), gen
 
 
 # Shapes and grids of the eval-grid kernels' cases (b, h, w, where): H x W
@@ -255,18 +255,20 @@ def test_warp_backward_kernel_matches_plain_on_depth_layouts(device, dtype, c, g
         _within_backward_tol(x, y, dtype)
 
 
+@pytest.mark.parametrize("ke", [9, 17])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("c,g", [(16, 4), (32, 8), (64, 8)])
 @pytest.mark.parametrize("b,h,w,where", [(1, 20, 36, "near"), (2, 13, 17, "near"),
                                          (1, 2, 40, "near"), (1, 9, 2, "near"),
                                          (1, 20, 36, "far")])
-def test_neighbor_backward_kernel_matches_plain(device, dtype, c, g, b, h, w, where):
+def test_neighbor_backward_kernel_matches_plain(device, dtype, c, g, b, h, w, where, ke):
     """K5 (d_gx, d_gy) against its plain version on ragged pixel tiles (H x
     W not a multiple of a block's pixels, H or W = 2) and on neighbours
-    clamped at the border ("far"); one launch counted."""
-    grid, gen = _grid_case(device, b, h, w, where, seed=c + 1)
+    clamped at the border ("far"), with 9 neighbours (one block of them) and
+    17 (two); one launch counted."""
+    grid, gen = _grid_case(device, b, h, w, where, seed=c + 1, ke=ke)
     ref = torch.randn((b, h, w, c), generator=gen, device=device).to(dtype)
-    dout = torch.randn((b, g, 9, h, w), generator=gen, device=device)
+    dout = torch.randn((b, g, ke, h, w), generator=gen, device=device)
     before = cuda_build.launch_counts().get("neighbor_group_corr_backward", 0)
     got = ops.neighbor_group_corr_backward(ref, grid, g, dout)
     assert cuda_build.launch_counts()["neighbor_group_corr_backward"] == before + 1
@@ -276,17 +278,18 @@ def test_neighbor_backward_kernel_matches_plain(device, dtype, c, g, b, h, w, wh
         _within_backward_tol(x, y, dtype)
 
 
+@pytest.mark.parametrize("ke", [9, 17])
 @pytest.mark.parametrize("cost_dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("d", [8, 16, 32, 64, 12, 5])
+@pytest.mark.parametrize("d", [8, 16, 32, 64, 12, 20, 5])
 @pytest.mark.parametrize("b,h,w,where", GRID_CASES)
-def test_eval_grid_score_kernel_matches_plain(device, cost_dtype, d, b, h, w, where):
+def test_eval_grid_score_kernel_matches_plain(device, cost_dtype, d, b, h, w, where, ke):
     """K2 against its plain version at the main path's D (runs of 8), D = 12
-    (runs of 4) and D = 5 (runs of 1), f32 and bf16 cost, at each of
-    GRID_CASES; one launch counted per call."""
-    grid, gen = _grid_case(device, b, h, w, where, seed=d)
+    and 20 (runs of 4) and D = 5 (runs of 1), f32 and bf16 cost, 9 and 17
+    neighbours, at each of GRID_CASES; one launch counted per call."""
+    grid, gen = _grid_case(device, b, h, w, where, seed=d, ke=ke)
     x_norm = torch.rand((b, h, w, d), generator=gen, device=device)
     cost = torch.randn((b, h, w, d), generator=gen, device=device).to(cost_dtype)
-    fw = torch.rand((b, 9, h, w), generator=gen, device=device) * 0.9 + 0.1
+    fw = torch.rand((b, ke, h, w), generator=gen, device=device) * 0.9 + 0.1
     before = cuda_build.launch_counts().get("eval_grid_score", 0)
     got = ops.eval_grid_score(x_norm, cost, grid, fw, 0.025)
     assert cuda_build.launch_counts()["eval_grid_score"] == before + 1
@@ -294,13 +297,15 @@ def test_eval_grid_score_kernel_matches_plain(device, cost_dtype, d, b, h, w, wh
     torch.testing.assert_close(got, want, rtol=1e-4, atol=1e-4)
 
 
+@pytest.mark.parametrize("ke", [9, 17])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("c,g", [(16, 4), (32, 8), (64, 8)])
 @pytest.mark.parametrize("b,h,w,where", GRID_CASES)
-def test_neighbor_kernel_matches_plain(device, dtype, c, g, b, h, w, where):
+def test_neighbor_kernel_matches_plain(device, dtype, c, g, b, h, w, where, ke):
     """K3 (the tiled kernel on the eval grid) against its plain version at
-    each of GRID_CASES; one launch counted per call."""
-    grid, gen = _grid_case(device, b, h, w, where, seed=c)
+    each of GRID_CASES, with 9 neighbours (one block of them) and 17 (two);
+    one launch counted per call."""
+    grid, gen = _grid_case(device, b, h, w, where, seed=c, ke=ke)
     ref = torch.randn((b, h, w, c), generator=gen, device=device).to(dtype)
     before = cuda_build.launch_counts().get("neighbor_group_corr", 0)
     got = ops.neighbor_group_corr(ref, grid, g)

@@ -13,7 +13,7 @@ the kernels) with the captured reference outputs and with the JAX model.
   the range; the median port-vs-JAX difference stays below the JAX model's
   own bf16-vs-f32 median; confidence median < 2e-2. The port's median
   bf16-vs-f32 delta is at most 2x the JAX model's.
-- The port's fixed stage configuration equals the JAX model's defaults.
+- The port's default stage configuration equals the JAX model's defaults.
 - `DepthEstimator` + `save_depth_maps` over a synthetic scene read through
   `MVSDataset`.
 """
@@ -35,7 +35,6 @@ from patchmatchnet_torch.data import PLANE_Z, BatchLoader, MVSDataset, make_synt
 from patchmatchnet_torch.infer import DepthEstimator, save_depth_maps
 from patchmatchnet_torch.models import PatchmatchNet
 from patchmatchnet_torch.models.patchmatch import (
-    EVALUATE_NEIGHBORS,
     STAGE_CONFIG,
     evaluation_offsets,
     propagation_offsets,
@@ -163,8 +162,8 @@ def test_bf16_matches_jax_bf16(port_outputs, jax_outputs, name):
 
 @pytest.mark.parametrize("stage", [1, 2, 3])
 def test_stage_config_matches_jax_defaults(stage):
-    """The port builds only the released configuration: the JAX model's
-    default per-stage settings and offset patterns."""
+    """The port's default configuration is the released one: the JAX
+    model's default per-stage settings and offset patterns."""
     i = stage - 1
     cfg = STAGE_CONFIG[stage]
     assert cfg.interval_scale == jax_net.DEFAULT_INTERVAL_SCALE[i]
@@ -172,9 +171,10 @@ def test_stage_config_matches_jax_defaults(stage):
     assert cfg.iterations == jax_net.DEFAULT_ITERATIONS[i]
     assert cfg.num_samples == jax_net.DEFAULT_NUM_SAMPLES[i]
     assert cfg.propagate_neighbors == jax_net.DEFAULT_PROPAGATE_NEIGHBORS[i]
-    assert EVALUATE_NEIGHBORS == jax_net.DEFAULT_EVALUATE_NEIGHBORS[i]
+    assert cfg.evaluate_neighbors == jax_net.DEFAULT_EVALUATE_NEIGHBORS[i]
     d = cfg.propagation_range
-    assert evaluation_offsets(d) == _fixed_offsets("evaluation", EVALUATE_NEIGHBORS, d)
+    assert evaluation_offsets(d, cfg.evaluate_neighbors) == _fixed_offsets(
+        "evaluation", cfg.evaluate_neighbors, d)
     if cfg.propagate_neighbors:
         assert propagation_offsets(cfg.propagate_neighbors, d) == _fixed_offsets(
             "propagation", cfg.propagate_neighbors, d)
