@@ -109,6 +109,24 @@ result line:
    evaluation 17/9/17, iterations 2/1/2, samples 8/12/16) trained one
    epoch from scratch at 640x512, B = 2, then `eval --output_type depth`
    from the `module_000000.pt` it wrote at 1152x864, 1 + 4 views.
+13. export path: the kernels as the custom ops `torch.ops.pmn.*` in a
+   `torch.export` program. (a) The bf16 and f32 models exported on the card
+   at 1152x864, B 1, N 5 (seconds, bytes), each loaded back from its bytes
+   by `ModuleEstimator`, whose graph must hold the pmn nodes K1 4 / K6 4 /
+   K2 5 / K3 3; an f32 artifact exported on the CPU at 64x80 and moved to
+   the card launches the kernels and equals eager f32 on the card. (b) Each
+   artifact serves EXPORT_REQUESTS requests of a 1152x864 5-view scene
+   beside the eager DepthEstimator of its precision at the same seed:
+   launches per request K1 4 / K6 4 / K2 5 / K3 3, finite maps, f32 against
+   eager at the golden bounds, bf16 at the main path's GT bound, each max
+   |module - eager| printed, and ms per map of both side by side. (c) The
+   command line: `export --num_views 6 --height 1200 --width 1600`, then
+   `eval --input_type module` at the DTU preset on a 6-view 1600x1200 scan,
+   held to `eval --input_type params --precision f32` at the same seed (each
+   its own process); then in this process through `cli.main`: a module
+   eval of another geometry must be refused, and `colmap-export` of the
+   scan and its maps, then `colmap-import` of that workspace, must give
+   back the cameras (and the workspace's patch-match.cfg the pairs).
 
 The last line is {"ok": true, "device": {...}}; the line before it holds
 the per-kernel JSON summary.
@@ -154,6 +172,13 @@ CLI_EVAL_SCAN, CLI_EVAL_VIEWS, CLI_EVAL_SOURCES, CLI_EVAL_H, CLI_EVAL_W = "scan1
 CLI_EVAL_TEXTURE = 128.0
 CLI_TRAIN_SCAN, CLI_TRAIN_VIEWS, CLI_TRAIN_BATCH = "scan2", 24, 8
 CLI_TIMEOUT = 300  # seconds, each CLI process
+# the export path (phase 13): requests per estimator at the main path's
+# geometry; the command line's artifact at the DTU preset (1 + 5 views of
+# 1600x1200) over a 6-view scan; the small artifact exported on the CPU and
+# moved to the card (1 + 2 views of 64x80)
+EXPORT_REQUESTS = 3
+EXPORT_CLI_VIEWS = 6
+MOVED_H, MOVED_W, MOVED_VIEWS = 64, 80, 3
 # the source views' x baselines of the parity rig (the first is the reference)
 RIG_BASELINES = (0.0, 0.35, -0.35, 0.7, -0.7)
 # the rig of phase 12 (a)'s kernel shapes: 1 + 5 views
@@ -1737,6 +1762,232 @@ def cli_path(device, scratch, smi) -> None:
           + " ".join(f"{e:.4f}" for e in errs), flush=True)
 
 
+def golden_bounds(label: str, got, want, depth_range: float) -> None:
+    """Fail unless (depth, confidence) `got` meets `want` at the bounds of
+    tests/test_model_golden.py (depth max 2e-3 of the range; confidence: at
+    most 0.1% of the pixels off by more than 5e-3, median below 1e-4)."""
+    import numpy as np
+
+    ddiff, cdiff = np.abs(got[0] - want[0]), np.abs(got[1] - want[1])
+    print(f"{label}: max |depth diff| {ddiff.max():.3e} ({ddiff.max() / depth_range:.3e} of the "
+          f"range), confidence max {cdiff.max():.3e}, share > 5e-3 {(cdiff > 5e-3).mean():.2e}, "
+          f"median {np.median(cdiff):.3e}", flush=True)
+    if (ddiff.max() >= 2e-3 * depth_range or (cdiff > 5e-3).mean() >= 1e-3
+            or np.median(cdiff) >= 1e-4):
+        fail(f"{label}: outside the golden bounds")
+
+
+def export_path(device, state_dict, scratch, smi) -> None:
+    """Phase 13: export on the card, ModuleEstimator beside DepthEstimator,
+    and export / eval --input_type module / colmap-export / colmap-import
+    through the command line."""
+    import numpy as np
+    import torch
+    from PIL import Image
+
+    from patchmatchnet_torch.compat import export_inference, kernel_nodes
+    from patchmatchnet_torch.data import (
+        PLANE_Z,
+        BatchLoader,
+        MVSDataset,
+        make_synthetic_scene,
+        read_cam_file,
+        read_map,
+        read_pfm,
+    )
+    from patchmatchnet_torch.infer import DepthEstimator, ModuleEstimator
+    from patchmatchnet_torch.models import PatchmatchNet
+    from patchmatchnet_torch.ops import cuda_build
+
+    def eager(dtype):
+        model = PatchmatchNet(compute_dtype=dtype)
+        model.load_state_dict(state_dict, strict=True)
+        return DepthEstimator(model, device=device)
+
+    # (a) both precisions exported on the card, loaded back from the bytes
+    precisions = (("bf16", torch.bfloat16), ("f32", None))
+    modules = {}
+    for name, dtype in precisions:
+        start = time.perf_counter()
+        blob = export_inference(state_dict, 1, MAIN_VIEWS, MAIN_H, MAIN_W,
+                                model=PatchmatchNet(compute_dtype=dtype), device=device)
+        seconds = time.perf_counter() - start
+        start = time.perf_counter()
+        modules[name] = ModuleEstimator(blob, device)
+        nodes = kernel_nodes(modules[name].exported.program)
+        print(f"export {name} {MAIN_W}x{MAIN_H}, B 1, N {MAIN_VIEWS}: {seconds:.2f} s, "
+              f"{len(blob)} bytes; loaded from the bytes in {time.perf_counter() - start:.2f} s; "
+              f"pmn nodes {nodes}; card {smi}", flush=True)
+        if nodes != EXPECTED_PER_FORWARD:
+            fail(f"the {name} program holds pmn nodes {nodes}, expected {EXPECTED_PER_FORWARD}")
+
+    # an f32 artifact exported on the CPU, moved to the card by the loader
+    small = os.path.join(scratch, "small")
+    make_synthetic_scene(small, num_views=MOVED_VIEWS, height=MOVED_H, width=MOVED_W,
+                         texture_scale=8.0)
+    batch = next(iter(BatchLoader(MVSDataset(small, MOVED_VIEWS - 1, ".png"), 1,
+                                  num_threads=1)))
+    moved = ModuleEstimator(export_inference(state_dict, 1, MOVED_VIEWS, MOVED_H, MOVED_W,
+                                             device="cpu"), device)
+    cuda_build.reset_launch_counts()
+    got = moved(batch, torch.Generator(device=device).manual_seed(0))
+    counts = cuda_build.launch_counts()
+    want = eager(None)(batch, torch.Generator(device=device).manual_seed(0))
+    print(f"f32 artifact exported on the CPU at {MOVED_W}x{MOVED_H}, N {MOVED_VIEWS}, run on "
+          f"{moved.exported.device}: launches {counts}", flush=True)
+    if counts != forward_launches(MOVED_VIEWS - 1, 5):
+        fail(f"the moved artifact launched {counts}, expected "
+             f"{forward_launches(MOVED_VIEWS - 1, 5)}")
+    golden_bounds("moved f32 artifact vs eager f32 on the card", got, want,
+                  (1.3 - 0.8) * PLANE_Z)
+
+    # (b) each artifact beside the eager estimator of its precision, the
+    # same requests and noise (one generator seeded 0 per estimator, as
+    # save_depth_maps draws it)
+    scene = os.path.join(scratch, "main")
+    make_synthetic_scene(scene, num_views=MAIN_VIEWS, height=MAIN_H, width=MAIN_W,
+                         texture_scale=8.0)
+    loader = BatchLoader(MVSDataset(scene, MAIN_VIEWS - 1, ".png"), 1, num_threads=1)
+    batches = [b for _, b in zip(range(EXPORT_REQUESTS), loader)]
+    for name, dtype in precisions:
+        runs = {"module": modules.pop(name), "eager": eager(dtype)}
+        for est in runs.values():  # warm-up: cuDNN algorithms, allocator
+            est(batches[0], torch.Generator(device=device).manual_seed(123))
+        gens = {k: torch.Generator(device=device).manual_seed(0) for k in runs}
+        ms = {k: [] for k in runs}
+        maps = {k: [] for k in runs}
+        for batch in batches:
+            for kind, est in runs.items():
+                torch.cuda.synchronize()
+                cuda_build.reset_launch_counts()
+                start = time.perf_counter()
+                out = est(batch, gens[kind])
+                ms[kind].append((time.perf_counter() - start) * 1e3)
+                counts = cuda_build.launch_counts()
+                if counts != EXPECTED_PER_FORWARD:
+                    fail(f"{name} {kind} request launched {counts}, expected "
+                         f"{EXPECTED_PER_FORWARD}")
+                if out[0].shape != (1, MAIN_H, MAIN_W) or not all(
+                        np.isfinite(m).all() for m in out):
+                    fail(f"{name} {kind} maps: shape {out[0].shape}, not all finite")
+                maps[kind].append(out)
+        print(f"{name} ms per map, module | eager: "
+              + " ".join(f"{m:.2f}|{e:.2f}" for m, e in zip(ms["module"], ms["eager"]))
+              + f" (median {statistics.median(ms['module']):.2f} | "
+              f"{statistics.median(ms['eager']):.2f}); launches per request "
+              f"{EXPECTED_PER_FORWARD}; card {smi}", flush=True)
+        for i, (got, want) in enumerate(zip(maps["module"], maps["eager"])):
+            if name == "f32":
+                golden_bounds(f"f32 module vs eager, request {i}", got, want,
+                              (1.3 - 0.8) * PLANE_Z)
+                continue
+            err = float(np.median(np.abs(got[0] - PLANE_Z)))
+            print(f"bf16 module vs eager, request {i}: max |depth diff| "
+                  f"{np.abs(got[0] - want[0]).max():.3e}, max |confidence diff| "
+                  f"{np.abs(got[1] - want[1]).max():.3e}; module median |depth - GT| "
+                  f"{err:.4f}", flush=True)
+            if err > 0.05 * PLANE_Z:
+                fail(f"bf16 module request {i}: median depth error {err:.4f} above 5% of the "
+                     "plane depth")
+        del runs
+    torch.cuda.empty_cache()
+
+    # (c) the command line at the DTU preset: export, eval the module and
+    # the params at the same seed, a module eval of another geometry
+    root = os.path.join(scratch, "dtu")
+    scan = os.path.join(root, CLI_EVAL_SCAN)
+    make_synthetic_scene(scan, num_views=EXPORT_CLI_VIEWS, height=CLI_EVAL_H, width=CLI_EVAL_W,
+                         texture_scale=CLI_EVAL_TEXTURE)
+    best_first_pairs(scan)
+    scan_list = os.path.join(root, "test.txt")
+    with open(scan_list, "w") as f:
+        f.write(CLI_EVAL_SCAN + "\n")
+    artifact = os.path.join(scratch, "dtu_f32.pt2")
+    stdout, counts, seconds = run_cli("export (DTU preset)", [
+        "export", "--checkpoint_path", CKPT, "--output", artifact, "--num_views",
+        str(EXPORT_CLI_VIEWS), "--height", str(CLI_EVAL_H), "--width", str(CLI_EVAL_W)],
+        CLI_TIMEOUT)
+    print(stdout.strip().splitlines()[-1], flush=True)
+    if counts:
+        fail(f"CLI export launched kernels: {counts}")
+    common = ["eval", "--input_folder", root, "--scan_list", scan_list, "--image_extension",
+              ".png", "--output_type", "depth", *DTU_EVAL_FLAGS]
+    outs = {}
+    for kind, flags in (("module", ["--input_type", "module", "--checkpoint_path", artifact]),
+                        ("params", ["--checkpoint_path", CKPT, "--precision", "f32"])):
+        outs[kind] = os.path.join(scratch, f"dtu_{kind}")
+        stdout, counts, _ = run_cli(f"eval --input_type {kind}",
+                                    common + ["--output_folder", outs[kind], *flags],
+                                    CLI_TIMEOUT)
+        expect_launches(f"eval --input_type {kind}", counts,
+                        [(EXPORT_CLI_VIEWS, forward_launches(CLI_EVAL_SOURCES, 5))])
+        wrote = [line for line in stdout.splitlines() if line.startswith("Wrote")]
+        print(f"CLI eval --input_type {kind}: " + (wrote[-1] if wrote else "no maps"),
+              flush=True)
+    for v in range(EXPORT_CLI_VIEWS):
+        got, want = ([read_pfm(os.path.join(outs[k], CLI_EVAL_SCAN, folder, f"{v:08d}.pfm"))
+                      [..., 0] for folder in ("depth_est", "confidence")]
+                     for k in ("module", "params"))
+        if got[0].shape != (CLI_EVAL_H, CLI_EVAL_W) or not np.isfinite(got[0]).all():
+            fail(f"CLI module eval view {v}: depth map {got[0].shape}, not all finite")
+        golden_bounds(f"CLI view {v}, module vs params (f32, seed 0)", got, want,
+                      (1.3 - 0.8) * PLANE_Z)
+    # the same command at another geometry, in this process (cli.main, as
+    # `python -m patchmatchnet_torch` runs it): the ValueError that makes
+    # the process exit 1
+    from patchmatchnet_torch import cli
+
+    try:
+        cli.main([*common, "--image_max_dim", str(MAIN_W), "--output_folder",
+                  os.path.join(scratch, "refused"), "--input_type", "module",
+                  "--checkpoint_path", artifact, "--device", str(device)])
+        fail("a module eval of another geometry was not refused")
+    except ValueError as err:
+        if "re-export" not in str(err):
+            raise
+        print(f"CLI module eval at --image_max_dim {MAIN_W}: refused: {err}", flush=True)
+
+    # colmap-export of the scan (JPEG images, as COLMAP's workspace names
+    # them) with the module's maps, then colmap-import of that workspace
+    for v in range(EXPORT_CLI_VIEWS):
+        png = os.path.join(scan, "images", f"{v:08d}.png")
+        Image.open(png).convert("RGB").save(png[:-4] + ".jpg")
+        os.remove(png)
+    workspace, back = os.path.join(scratch, "colmap_ws"), os.path.join(scratch, "colmap_back")
+    start = time.perf_counter()
+    cli.main(["colmap-export", "--input_folder", scan, "--results_folder",
+              os.path.join(outs["module"], CLI_EVAL_SCAN), "--output_folder", workspace])
+    cli.main(["colmap-import", "--input_folder", workspace, "--output_folder", back,
+              "--model_ext", ".txt"])
+    print(f"colmap-export + colmap-import (cli.main in this process): "
+          f"{time.perf_counter() - start:.2f} s", flush=True)
+    worst = 0.0
+    for v in range(EXPORT_CLI_VIEWS):
+        k0, e0, _ = read_cam_file(os.path.join(scan, "cams", f"{v:08d}_cam.txt"))
+        k1, e1, _ = read_cam_file(os.path.join(back, "cams", f"{v:08d}_cam.txt"))
+        worst = max(worst, float(np.abs(k1 - k0).max()), float(np.abs(e1 - e0).max()))
+    with open(os.path.join(scan, "pair.txt")) as f:
+        lines = f.read().split("\n")
+    pairs = [(int(lines[1 + 2 * i]), [int(x) for x in lines[2 + 2 * i].split()[1::2]])
+             for i in range(int(lines[0]))]
+    with open(os.path.join(workspace, "stereo", "patch-match.cfg")) as f:
+        cfg = f.read().split("\n")
+    cfg_pairs = [(cfg[2 * i], cfg[2 * i + 1].split(", ")) for i in range(len(pairs))]
+    want_cfg = [(f"{r:08d}.jpg", [f"{s:08d}.jpg" for s in srcs]) for r, srcs in pairs]
+    print(f"colmap-export -> colmap-import of {EXPORT_CLI_VIEWS} views: max |camera difference| "
+          f"{worst:.3e}; patch-match.cfg pairs equal pair.txt: {cfg_pairs == want_cfg}",
+          flush=True)
+    if worst > 1e-5 or cfg_pairs != want_cfg:
+        fail("colmap-export / colmap-import did not round-trip the cameras and pairs")
+    for v in range(EXPORT_CLI_VIEWS):
+        depth = read_pfm(os.path.join(outs["module"], CLI_EVAL_SCAN, "depth_est",
+                                      f"{v:08d}.pfm"))
+        ws_depth = read_map(os.path.join(workspace, "stereo", "depth_maps",
+                                         f"{v:08d}.jpg.geometric.bin"))
+        if not np.array_equal(depth, ws_depth):
+            fail(f"the workspace's depth map {v} differs from the module's")
+
+
 def read_training_run(out: str, steps: int):
     """The train records of a CLI training run (metrics.jsonl), after
     checking its checkpoint set, a finite loss logged for each of its
@@ -1850,6 +2101,15 @@ def main() -> int:
     scratch = tempfile.mkdtemp(prefix="smoke_cli_", dir=os.path.join(REPO, "build"))
     try:
         cli_path(device, scratch, smi)
+    finally:
+        shutil.rmtree(scratch, ignore_errors=True)
+
+    phase(f"export path: torch.export of the bf16 and f32 models at {MAIN_W}x{MAIN_H}, "
+          f"ModuleEstimator beside DepthEstimator, export + eval --input_type module at the "
+          "DTU preset, colmap-export + colmap-import")
+    scratch = tempfile.mkdtemp(prefix="smoke_export_", dir=os.path.join(REPO, "build"))
+    try:
+        export_path(device, state_dict, scratch, smi)
     finally:
         shutil.rmtree(scratch, ignore_errors=True)
 

@@ -1,18 +1,25 @@
-"""Command line of the port: train / eval / fuse / convert subcommands
-(reference: `patchmatchnet_tpu/cli.py`, with its flag names, defaults and
-choices, plus `--device`).
+"""Command line of the port (reference: `patchmatchnet_tpu/cli.py`, with
+its subcommands, flag names, defaults and choices, plus `--device`).
 
     python -m patchmatchnet_torch train --input_folder ... --train_list ... --test_list ...
     python -m patchmatchnet_torch eval  --input_folder ... --checkpoint_path ...
     python -m patchmatchnet_torch fuse  --input_folder ... --output_folder ...
     python -m patchmatchnet_torch convert --checkpoint_path X.ckpt --output Y.pt
+    python -m patchmatchnet_torch export --checkpoint_path X --output Y.pt2
+    python -m patchmatchnet_torch eval --input_type module --checkpoint_path Y.pt2 ...
+    python -m patchmatchnet_torch colmap-import|colmap-export|convert-dtu|convert-eth3d|visualize
 
 Every subcommand that computes runs on `--device cuda` (the default) and
 raises where CUDA is missing; `--device cpu` runs the kernels' plain
 versions. `--checkpoint_path` takes a flax `.msgpack`, a reference PyTorch
-`.ckpt` or a `.pt` the port wrote (`train.driver.load_any_checkpoint`).
+`.ckpt` or a `.pt` the port wrote (`train.driver.load_any_checkpoint`), or
+with `eval --input_type module` an artifact of `export`, whose input
+geometry is fixed: export's `--num_views` counts every view of a sample, so
+eval's `--num_views 5` (sources) at 1600x1200 takes an artifact exported
+with `--num_views 6 --height 1200 --width 1600`.
 `eval --no_derive_windows` is accepted and changes nothing: the port's
-kernels read the source features directly, with no windows.
+kernels read the source features directly, with no windows. The five host
+tools run their `patchmatchnet_torch.tools` module's `main`.
 """
 
 from __future__ import annotations
@@ -26,23 +33,29 @@ from typing import Callable, Dict, List, Optional
 
 import torch
 
-from patchmatchnet_torch.compat import convert_torch_checkpoint
+from patchmatchnet_torch.compat import convert_torch_checkpoint, export_inference
 from patchmatchnet_torch.config import Config
 from patchmatchnet_torch.data import BatchLoader, MVSDataset
-from patchmatchnet_torch.infer import DepthEstimator, FusionConfig, filter_and_fuse, save_depth_maps
+from patchmatchnet_torch.infer import (
+    DepthEstimator,
+    FusionConfig,
+    ModuleEstimator,
+    filter_and_fuse,
+    save_depth_maps,
+)
 from patchmatchnet_torch.ops import cuda_build
+from patchmatchnet_torch.tools import (
+    colmap_export,
+    colmap_import,
+    convert_dtu,
+    convert_eth3d,
+    visualize,
+)
 from patchmatchnet_torch.train.driver import build_model, load_any_checkpoint, run_training
 
-# Subcommands of the JAX command line that the port has not yet, and the
+# Options of the JAX command line that the port has not yet, and the
 # ROADMAP item that brings each.
-NOT_PORTED = {
-    "export": "ROADMAP item 11 (export and ModuleEstimator)",
-    "colmap-import": "ROADMAP item 12 (the host tools)",
-    "colmap-export": "ROADMAP item 12 (the host tools)",
-    "convert-dtu": "ROADMAP item 12 (the host tools)",
-    "convert-eth3d": "ROADMAP item 12 (the host tools)",
-    "visualize": "ROADMAP item 12 (the host tools)",
-}
+NOT_PORTED = {"--num_devices > 1": "ROADMAP item 10 (data parallel)"}
 
 
 def _refuse(what: str, item: str) -> None:
@@ -126,8 +139,8 @@ def build_parser(command: str) -> argparse.ArgumentParser:
         _add_fusion_args(p)
         p.add_argument("--checkpoint_path", type=str, required=True)
         p.add_argument("--input_type", type=str, default="params", choices=["params", "module"],
-                       help="params: a weights checkpoint; module (an exported model) is "
-                       "not ported yet")
+                       help="params: a weights checkpoint; module: an artifact of export "
+                       "(fixed geometry; the model options are baked in)")
         p.add_argument("--output_type", type=str, default="both",
                        choices=["depth", "fusion", "both"])
         p.add_argument("--num_devices", type=int, default=None,
@@ -147,6 +160,15 @@ def build_parser(command: str) -> argparse.ArgumentParser:
         p.add_argument("--image_max_dim", type=int, default=-1)
         p.add_argument("--image_extension", type=str, default=".jpg")
         _add_fusion_args(p)
+        _add_device_arg(p)
+    elif command == "export":
+        p.add_argument("--checkpoint_path", type=str, required=True)
+        p.add_argument("--output", type=str, required=True,
+                       help="output artifact path (torch.export program, .pt2)")
+        p.add_argument("--batch", type=int, default=1)
+        p.add_argument("--num_views", type=int, default=5)
+        p.add_argument("--height", type=int, default=864)
+        p.add_argument("--width", type=int, default=1152)
         _add_device_arg(p)
     elif command == "convert":
         p.add_argument("--checkpoint_path", type=str, required=True,
@@ -191,7 +213,7 @@ def _fuse_scans(args: argparse.Namespace, device: torch.device) -> None:
 def cmd_train(argv: List[str]) -> None:
     args = build_parser("train").parse_args(argv)
     if args.num_devices is not None and args.num_devices > 1:
-        _refuse("--num_devices > 1", "ROADMAP item 10 (data parallel)")
+        _refuse("--num_devices > 1", NOT_PORTED["--num_devices > 1"])
     if not args.output_folder:
         args.output_folder = args.input_folder
     run_training(_config_from_args(args), profile_dir=args.profile_dir)
@@ -199,23 +221,25 @@ def cmd_train(argv: List[str]) -> None:
 
 def cmd_eval(argv: List[str]) -> None:
     args = build_parser("eval").parse_args(argv)
-    if args.input_type == "module":
-        _refuse("--input_type module", NOT_PORTED["export"])
     if args.num_devices is not None and args.num_devices > 1:
-        _refuse("--num_devices > 1", "ROADMAP item 10 (data parallel)")
+        _refuse("--num_devices > 1", NOT_PORTED["--num_devices > 1"])
     if not args.output_folder:
         args.output_folder = args.input_folder
     device = torch.device(args.device)
     if args.output_type in ("depth", "both"):
-        model = build_model(_config_from_args(args), inference=True)
-        model.load_state_dict(load_any_checkpoint(args.checkpoint_path), strict=True)
-        estimator = DepthEstimator(model, device, bucket_multiple=args.shape_bucket)
+        if args.input_type == "module":
+            with open(args.checkpoint_path, "rb") as f:
+                estimator = ModuleEstimator(f.read(), device)
+        else:
+            model = build_model(_config_from_args(args), inference=True)
+            model.load_state_dict(load_any_checkpoint(args.checkpoint_path), strict=True)
+            estimator = DepthEstimator(model, device, bucket_multiple=args.shape_bucket)
         dataset = MVSDataset(args.input_folder, args.num_views, args.image_extension,
                              max_dim=args.image_max_dim, scan_list=args.scan_list,
                              num_light_idx=args.num_light_idx)
         start, request_ms = time.perf_counter(), []
         n = save_depth_maps(estimator, BatchLoader(dataset, args.batch_size), args.output_folder,
-                            seed=args.seed, file_format=args.file_format, request_ms=request_ms)
+                            args.file_format, seed=args.seed, request_ms=request_ms)
         seconds = time.perf_counter() - start
         first = request_ms[0] if request_ms else 0.0
         after = (f", then median {statistics.median(request_ms[1:]):.2f}"
@@ -242,11 +266,28 @@ def cmd_convert(argv: List[str]) -> None:
     print(f"Converted {args.checkpoint_path} -> {args.output} ({n} values)")
 
 
+def cmd_export(argv: List[str]) -> None:
+    args = build_parser("export").parse_args(argv)
+    start = time.perf_counter()
+    blob = export_inference(load_any_checkpoint(args.checkpoint_path), args.batch,
+                            args.num_views, args.height, args.width, device=args.device)
+    with open(args.output, "wb") as f:
+        f.write(blob)
+    print(f"Exported f32 inference artifact -> {args.output} ({len(blob)} bytes, "
+          f"{time.perf_counter() - start:.3f} s)")
+
+
 COMMANDS: Dict[str, Callable[[List[str]], None]] = {
     "train": cmd_train,
     "eval": cmd_eval,
     "fuse": cmd_fuse,
     "convert": cmd_convert,
+    "export": cmd_export,
+    "colmap-import": colmap_import.main,
+    "colmap-export": colmap_export.main,
+    "convert-dtu": convert_dtu.main,
+    "convert-eth3d": convert_eth3d.main,
+    "visualize": visualize.main,
 }
 
 
@@ -260,8 +301,6 @@ def main(argv: Optional[List[str]] = None) -> None:
             print(f"  {c:<14} {item}")
         return
     cmd = argv[0]
-    if cmd in NOT_PORTED:
-        _refuse(f"the {cmd} subcommand", NOT_PORTED[cmd])
     if cmd not in COMMANDS:
         raise SystemExit(f"Unknown command {cmd!r}; choose from {list(COMMANDS)}")
     COMMANDS[cmd](argv[1:])

@@ -1,6 +1,12 @@
 """Checkpoint interop with the JAX reference package and the original
-PyTorch checkpoints."""
+PyTorch checkpoints, and the export of the inference forward."""
 
+from patchmatchnet_torch.compat.export import (
+    ExportedForward,
+    export_inference,
+    kernel_nodes,
+    load_exported,
+)
 from patchmatchnet_torch.compat.torch_convert import (
     convert_torch_checkpoint,
     convert_torch_state_dict,
@@ -14,9 +20,13 @@ from patchmatchnet_torch.compat.weights import (
 )
 
 __all__ = [
+    "ExportedForward",
     "TrainState",
     "convert_torch_checkpoint",
     "convert_torch_state_dict",
+    "export_inference",
+    "kernel_nodes",
+    "load_exported",
     "read_flax_msgpack",
     "state_dict_from_jax",
     "tensors_from_jax_params",

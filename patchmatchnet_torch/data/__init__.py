@@ -5,6 +5,7 @@ from patchmatchnet_torch.data.codecs import (
     read_bin,
     read_cam_file,
     read_image,
+    read_image_dictionary,
     read_image_size,
     read_map,
     read_pair_file,
@@ -35,6 +36,7 @@ __all__ = [
     "read_bin",
     "read_cam_file",
     "read_image",
+    "read_image_dictionary",
     "read_image_size",
     "read_map",
     "read_pair_file",

@@ -6,20 +6,36 @@ convention), and the shrink of images and maps to a longest side."""
 from __future__ import annotations
 
 import os
-from typing import List, Sequence, Tuple
+from typing import Dict, List, Sequence, Tuple
 
 import numpy as np
-import torch
-import torch.nn.functional as F
 from PIL import Image
+
+
+def _resize_axis(size: int, out: int) -> Tuple[np.ndarray, np.ndarray, np.ndarray]:
+    """Source indices (i0, i1) and f32 weights of one axis: half-pixel
+    centres in f64, clamped to the image, truncated to the lower index."""
+    s = (np.arange(out, dtype=np.float64) + 0.5) * (size / out) - 0.5
+    s = np.clip(s, 0.0, size - 1.0)
+    i0 = s.astype(np.int64)
+    return i0, np.minimum(i0 + 1, size - 1), (s - i0).astype(np.float32)
 
 
 def resize_images(images: np.ndarray, height: int, width: int) -> np.ndarray:
     """[N, H, W, C] float32 -> [N, height, width, C], bilinear with
-    half-pixel centers (cv2.INTER_LINEAR convention)."""
-    nchw = torch.from_numpy(np.ascontiguousarray(images)).permute(0, 3, 1, 2)
-    out = F.interpolate(nchw, size=(height, width), mode="bilinear", align_corners=False)
-    return out.permute(0, 2, 3, 1).contiguous().numpy()
+    half-pixel centers (cv2.INTER_LINEAR convention), in the arithmetic of
+    the JAX package's native resize (`native/hostops.cpp`
+    `resize_bilinear_f32`), to the bit: f64 source coordinates, f32 weights,
+    and in f32 `top = p00 + (p01 - p00) * fx`, the same below, then
+    `top + (bot - top) * fy`."""
+    images = np.asarray(images, np.float32)
+    y0, y1, fy = _resize_axis(images.shape[1], height)
+    x0, x1, fx = _resize_axis(images.shape[2], width)
+    fx, fy = fx[None, None, :, None], fy[None, :, None, None]
+    rows0, rows1 = images[:, y0], images[:, y1]
+    top = rows0[:, :, x0] + (rows0[:, :, x1] - rows0[:, :, x0]) * fx
+    bot = rows1[:, :, x0] + (rows1[:, :, x1] - rows1[:, :, x0]) * fx
+    return top + (bot - top) * fy
 
 
 def scaled_dims(height: int, width: int, max_dim: int) -> Tuple[int, int]:
@@ -40,10 +56,11 @@ def scale_to_max_dim(image: np.ndarray, max_dim: int) -> Tuple[np.ndarray, int, 
     return image, height, width
 
 
-def read_image(path: str, max_dim: int = -1) -> np.ndarray:
-    """Image as [H, W, 3] float32 in [0, 1] (grey images repeated to RGB),
-    shrunk so max(H, W) <= max_dim. 8-bit levels decode as x * f32(1/255),
-    the JAX package's native decode, to the bit."""
+def read_image(path: str, max_dim: int = -1, rgb: bool = True) -> np.ndarray:
+    """Image as [H, W, 3] float32 in [0, 1] (grey images repeated to RGB;
+    kept [H, W] with `rgb=False`, as the JAX package reads them), shrunk so
+    max(H, W) <= max_dim. 8-bit levels decode as x * f32(1/255), the JAX
+    package's native decode, to the bit."""
     with Image.open(path) as im:
         raw = np.asarray(im)
     if raw.dtype == np.uint8:
@@ -51,6 +68,8 @@ def read_image(path: str, max_dim: int = -1) -> np.ndarray:
     else:
         image = raw.astype(np.float32) / np.float32(255)
     if image.ndim == 2:
+        if not rgb:
+            return scale_to_max_dim(image[:, :, None], max_dim)[0][:, :, 0]
         image = np.repeat(image[:, :, None], 3, axis=2)
     return scale_to_max_dim(image, max_dim)[0]
 
@@ -110,6 +129,17 @@ def read_pair_file(path: str) -> List[Tuple[int, List[int]]]:
     return pairs
 
 
+def read_image_dictionary(path: str) -> Dict[int, str]:
+    """The `index -> image file name` entries of an ETH3D index2prefix.txt:
+    a count, then one "index name" line per entry."""
+    entries: Dict[int, str] = {}
+    with open(path) as f:
+        for _ in range(int(f.readline().strip())):
+            parts = f.readline().strip().split(" ")
+            entries[int(parts[0].strip())] = parts[1].strip()
+    return entries
+
+
 def save_pair_file(path: str, pairs: Sequence[Tuple[int, Sequence[Tuple[int, float]]]]) -> None:
     """`pairs`: (reference view, [(source view, score), ...]) entries."""
     with open(path, "w") as f:
@@ -136,9 +166,10 @@ def read_pfm(path: str) -> np.ndarray:
 
 
 def save_pfm(path: str, depth_map: np.ndarray) -> None:
-    """Write a float32 [H, W] map as a little-endian single-channel PFM."""
-    if depth_map.dtype != np.float32 or depth_map.ndim != 2:
-        raise ValueError("save_pfm writes float32 [H, W] maps")
+    """Write a float32 [H, W] or [H, W, 1] map as a little-endian
+    single-channel PFM."""
+    if depth_map.dtype != np.float32 or depth_map.shape[2:] not in ((), (1,)):
+        raise ValueError("save_pfm writes float32 [H, W] or [H, W, 1] maps")
     os.makedirs(os.path.dirname(os.path.abspath(path)), exist_ok=True)
     with open(path, "wb") as f:
         f.write(f"Pf\n{depth_map.shape[1]} {depth_map.shape[0]}\n-1.000000\n".encode())

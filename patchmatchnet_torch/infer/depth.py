@@ -1,5 +1,6 @@
 """Depth/confidence map inference and export (reference:
-`patchmatchnet_tpu/infer/depth.py`, `DepthEstimator` and `save_depth_maps`).
+`patchmatchnet_tpu/infer/depth.py`, `DepthEstimator`, `ModuleEstimator` and
+`save_depth_maps`).
 
 Host-side pre/post-processing around the forward: optional bucket padding
 of (H, W) with edge replication, and the resize back to the original
@@ -18,6 +19,7 @@ from typing import Any, Dict, Iterable, List, Optional, Tuple, Union
 import numpy as np
 import torch
 
+from patchmatchnet_torch.compat.export import load_exported
 from patchmatchnet_torch.data.codecs import save_map
 from patchmatchnet_torch.models.net import PatchmatchNet
 from patchmatchnet_torch.models.patchmatch import INITIAL_NUM_SAMPLES
@@ -65,13 +67,13 @@ class DepthEstimator:
         h, w = images.shape[2:4]
         noise = torch.rand((b, INITIAL_NUM_SAMPLES, h // 8, w // 8),
                            generator=generator, device=self.device)
-        depth, confidence, _ = self.model(
+        depth, confidence = self._forward(
             self._tensor(images),
             self._tensor(batch["intrinsics"]).float(),
             self._tensor(batch["extrinsics"]).float(),
             self._tensor(batch["depth_min"]).float().reshape(b),
             self._tensor(batch["depth_max"]).float().reshape(b),
-            init_noise=noise,
+            noise,
         )
         depth, confidence = depth[:, :h0, :w0], confidence[:, :h0, :w0]
         orig_h = int(np.asarray(batch.get("orig_height", h0)).reshape(-1)[0])
@@ -80,13 +82,46 @@ class DepthEstimator:
         confidence = resize_nearest_maps(confidence, orig_h, orig_w)
         return depth.cpu().numpy(), confidence.cpu().numpy()
 
+    def _forward(self, images, intrinsics, extrinsics, depth_min, depth_max, noise):
+        depth, confidence, _ = self.model(images, intrinsics, extrinsics, depth_min,
+                                          depth_max, init_noise=noise)
+        return depth, confidence
+
+
+class ModuleEstimator(DepthEstimator):
+    """Inference from an artifact of `compat.export.export_inference` (the
+    reference's `--input_type module` path).
+
+    The artifact bakes in the weights and a fixed input geometry: batches
+    must match its images shape [B, N, H, W, 3] exactly, so there is no
+    bucket padding. An artifact exported on another device is moved to
+    `device` (`compat.export.load_exported`), where its kernel nodes launch
+    the kernels (CUDA) or run their plain versions (CPU). The stage-3 noise
+    is drawn as `DepthEstimator` draws it, so one seed gives both estimators
+    the same noise; an f32 artifact runs with TF32 off."""
+
+    def __init__(self, blob: bytes, device: Union[str, torch.device]):
+        self.device = torch.device(device)
+        if self.device.type == "cuda" and not torch.cuda.is_available():
+            raise RuntimeError(f"device {self.device} requested but CUDA is not available")
+        self.bucket_multiple = 0  # shapes are baked into the artifact
+        self.exported = load_exported(blob, self.device)
+
+    def _forward(self, images, intrinsics, extrinsics, depth_min, depth_max, noise):
+        if tuple(images.shape) != self.exported.shape:
+            raise ValueError(
+                f"exported module expects images {self.exported.shape}, got "
+                f"{tuple(images.shape)}; re-export for this geometry or set "
+                "--image_max_dim/--batch_size to match")
+        return self.exported(images, intrinsics, extrinsics, depth_min, depth_max, noise)
+
 
 def save_depth_maps(
     estimator: DepthEstimator,
     loader: Iterable[Dict[str, Any]],
     output_folder: str,
-    seed: int = 0,
     file_format: str = ".pfm",
+    seed: int = 0,
     request_ms: Optional[List[float]] = None,
 ) -> int:
     """Run inference over a loader and write depth_est/ + confidence/ maps in

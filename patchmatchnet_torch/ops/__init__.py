@@ -4,7 +4,8 @@ backward kernels K4 `warp_group_corr_backward` and K5
 `neighbor_group_corr_backward`, the fused-views K6 `warp_group_corr_views`,
 the coordinate-input K7 `coord_group_corr`, and the gathers of the gather
 microbenchmarks, D1-D5, `gather_lanes`, `gather_sublanes` and
-`gather_rows`), each with a `*_reference` plain version."""
+`gather_rows`), each with a `*_reference` plain version. K1, K6, K2 and K3
+are called through the operators `torch.ops.pmn.*` (`library.py`)."""
 
 from patchmatchnet_torch.ops.eval_tail import eval_grid_score, eval_grid_score_reference
 from patchmatchnet_torch.ops.gather import (

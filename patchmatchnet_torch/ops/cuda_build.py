@@ -165,6 +165,17 @@ def stream_handle(device: torch.device) -> int:
     return torch.cuda.current_stream(device).cuda_stream
 
 
+def check_kernel_device(name: str, device: torch.device) -> None:
+    """Raise unless `device` is the CPU (plain version) or a CUDA device
+    (kernel): the kernel ops would give a tensor elsewhere (such as on the
+    meta device) only its shape."""
+    if device.type not in ("cpu", "cuda"):
+        raise ValueError(
+            f"{name}: tensors must be on the CPU (plain version) or on a CUDA "
+            f"device (kernel), got {device}"
+        )
+
+
 def check_cuda_tensor(name: str, t: torch.Tensor, device: torch.device,
                       dtypes: Tuple[torch.dtype, ...], shape: Tuple[int, ...]) -> None:
     """Raise unless `t` is a contiguous tensor of `shape` and one of `dtypes`

@@ -24,6 +24,7 @@ import torch
 
 from patchmatchnet_torch.ops import cuda_build
 from patchmatchnet_torch.ops.grid_sample import grid_sample_2d
+from patchmatchnet_torch.ops.library import define_kernel_op
 
 _COST_DTYPES = (torch.float32, torch.bfloat16)
 
@@ -51,30 +52,9 @@ def eval_grid_score_reference(
     return (c_smp * weight).sum(dim=1)
 
 
-def eval_grid_score(
-    x_norm_img: torch.Tensor, cost_img: torch.Tensor, grid: Sequence[torch.Tensor],
-    feature_weight: torch.Tensor, interval_scale: float,
-) -> torch.Tensor:
-    """Adaptive spatial aggregation score.
-
-    Args:
-        x_norm_img: [B, H, W, D] f32 normalized inverse depth in [0, 1].
-        cost_img: [B, H, W, D] SimilarityNet cost (f32 or bf16).
-        grid: (gx, gy), each [B, Ke, H, W] f32 normalized eval-grid
-            coordinates (align_corners=False convention, border padding).
-        feature_weight: [B, Ke, H, W] f32.
-        interval_scale: the stage's inverse-depth interval scale.
-    Returns:
-        [B, H, W, D] f32 score before the softmax.
-
-    CPU tensors run the plain version; CUDA tensors launch the kernel, and
-    anything the kernel does not take raises.
-    """
-    if x_norm_img.device.type == "cpu":
-        return eval_grid_score_reference(
-            x_norm_img, cost_img, grid, feature_weight, interval_scale
-        )
-    gx, gy = grid
+def _launch(x_norm_img: torch.Tensor, cost_img: torch.Tensor, gx: torch.Tensor,
+            gy: torch.Tensor, feature_weight: torch.Tensor,
+            interval_scale: float) -> torch.Tensor:
     b, h, w, d = x_norm_img.shape
     ke = gx.shape[1]
     if h < 2 or w < 2:
@@ -98,3 +78,49 @@ def eval_grid_score(
         )
     cuda_build.check_launch("eval_grid_score", rc)
     return out
+
+
+# K2 as the operator `pmn::eval_grid_score` (ops/library.py); its backward
+# raises, as the kernel has none
+_eval_grid_score_op = define_kernel_op(
+    "eval_grid_score",
+    "(Tensor x_norm_img, Tensor cost_img, Tensor gx, Tensor gy, Tensor feature_weight, "
+    "float interval_scale) -> Tensor",
+    lambda x_norm_img, cost_img, gx, gy, feature_weight, interval_scale:
+    eval_grid_score_reference(x_norm_img, cost_img, (gx, gy), feature_weight,
+                              interval_scale).contiguous(),
+    _launch, lambda x_norm_img, *rest: x_norm_img.new_empty(x_norm_img.shape))
+
+
+def _no_backward(ctx, grad):
+    raise RuntimeError("eval_grid_score (K2) has no backward, as its TPU kernel has none: "
+                       "training runs eval_grid_score_reference")
+
+
+torch.library.register_autograd(_eval_grid_score_op, _no_backward)
+
+
+def eval_grid_score(
+    x_norm_img: torch.Tensor, cost_img: torch.Tensor, grid: Sequence[torch.Tensor],
+    feature_weight: torch.Tensor, interval_scale: float,
+) -> torch.Tensor:
+    """Adaptive spatial aggregation score.
+
+    Args:
+        x_norm_img: [B, H, W, D] f32 normalized inverse depth in [0, 1].
+        cost_img: [B, H, W, D] SimilarityNet cost (f32 or bf16).
+        grid: (gx, gy), each [B, Ke, H, W] f32 normalized eval-grid
+            coordinates (align_corners=False convention, border padding).
+        feature_weight: [B, Ke, H, W] f32.
+        interval_scale: the stage's inverse-depth interval scale.
+    Returns:
+        [B, H, W, D] f32 score before the softmax.
+
+    It calls the operator `torch.ops.pmn.eval_grid_score`: CPU tensors run
+    the plain version; CUDA tensors launch the kernel, and anything the
+    kernel does not take raises. It has no backward: one through it raises.
+    """
+    cuda_build.check_kernel_device("eval_grid_score", x_norm_img.device)
+    gx, gy = grid
+    return _eval_grid_score_op(x_norm_img, cost_img, gx, gy, feature_weight,
+                               float(interval_scale))

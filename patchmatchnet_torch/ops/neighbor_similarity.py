@@ -25,6 +25,7 @@ import torch
 
 from patchmatchnet_torch.ops import cuda_build
 from patchmatchnet_torch.ops.grid_sample import grid_sample_2d
+from patchmatchnet_torch.ops.library import define_kernel_op
 from patchmatchnet_torch.ops.warp_similarity import (
     SUPPORTED_CHANNELS_GROUPS,
     group_mean_matrix,
@@ -62,32 +63,50 @@ def _check_inputs(ref, gx, gy, groups):
     return b, ke, h, w, c
 
 
-class _NeighborGroupCorr(torch.autograd.Function):
-    """K3 forward, K5 backward; gradient to the grid only."""
+def _launch_forward(ref: torch.Tensor, gx: torch.Tensor, gy: torch.Tensor,
+                    groups: int) -> torch.Tensor:
+    b, ke, h, w, c = _check_inputs(ref, gx, gy, groups)
+    dev = ref.device
+    out = torch.empty((b, groups, ke, h, w), dtype=torch.float32, device=dev)
+    lib = cuda_build.kernel_library()
+    with torch.cuda.device(dev):
+        rc = lib.pmn_neighbor_group_corr(
+            ref.data_ptr(), gx.data_ptr(), gy.data_ptr(), out.data_ptr(),
+            b, ke, h, w, c, groups, int(ref.dtype == torch.bfloat16),
+            cuda_build.stream_handle(dev),
+        )
+    cuda_build.check_launch("neighbor_group_corr", rc)
+    return out
 
-    @staticmethod
-    def forward(ctx, ref, gx, gy, groups):
-        b, ke, h, w, c = _check_inputs(ref, gx, gy, groups)
-        ctx.save_for_backward(ref, gx, gy)
-        ctx.groups = groups
-        dev = ref.device
-        out = torch.empty((b, groups, ke, h, w), dtype=torch.float32, device=dev)
-        lib = cuda_build.kernel_library()
-        with torch.cuda.device(dev):
-            rc = lib.pmn_neighbor_group_corr(
-                ref.data_ptr(), gx.data_ptr(), gy.data_ptr(), out.data_ptr(),
-                b, ke, h, w, c, groups, int(ref.dtype == torch.bfloat16),
-                cuda_build.stream_handle(dev),
-            )
-        cuda_build.check_launch("neighbor_group_corr", rc)
-        return out
 
-    @staticmethod
-    def backward(ctx, dout):
-        ref, gx, gy = ctx.saved_tensors
-        d_gx, d_gy = neighbor_group_corr_backward(ref, (gx, gy), ctx.groups,
-                                                  dout.contiguous())
-        return None, d_gx, d_gy, None
+def _corr_like(ref, gx, gy, groups):
+    b, ke, h, w = gx.shape
+    return gx.new_empty((b, groups, ke, h, w))
+
+
+# K3 as the operator `pmn::neighbor_group_corr` (ops/library.py), with K5 (or
+# the plain backward on the CPU) as its gradient
+_neighbor_group_corr_op = define_kernel_op(
+    "neighbor_group_corr", "(Tensor ref, Tensor gx, Tensor gy, int groups) -> Tensor",
+    lambda ref, gx, gy, groups: neighbor_group_corr_reference(ref, (gx, gy), groups)
+    .contiguous(), _launch_forward, _corr_like)
+
+
+def _neighbor_group_corr_setup(ctx, inputs, output):
+    ref, gx, gy, groups = inputs
+    ctx.save_for_backward(ref, gx, gy)
+    ctx.groups = groups
+
+
+def _neighbor_group_corr_grad(ctx, dout):
+    """K5 (or its plain version): gradients to the grid only."""
+    ref, gx, gy = ctx.saved_tensors
+    d_gx, d_gy = neighbor_group_corr_backward(ref, (gx, gy), ctx.groups, dout.contiguous())
+    return None, d_gx, d_gy, None
+
+
+torch.library.register_autograd(_neighbor_group_corr_op, _neighbor_group_corr_grad,
+                                setup_context=_neighbor_group_corr_setup)
 
 
 def neighbor_group_corr(
@@ -103,16 +122,17 @@ def neighbor_group_corr(
         [B, G, Ke, H, W] f32 correlation, differentiable with respect to the
         grid.
 
-    CPU tensors run the plain version; CUDA tensors launch the kernel (and
-    K5 in backward), and anything the kernel does not take raises.
+    It calls the operator `torch.ops.pmn.neighbor_group_corr`: CPU tensors
+    run the plain version (and its autograd in backward); CUDA tensors
+    launch the kernel (and K5 in backward), and anything the kernel does
+    not take raises.
     """
     if ref.requires_grad and torch.is_grad_enabled():
         raise ValueError("neighbor_group_corr: ref must be detached (the gradient "
                          "flows to the grid only, as in the reference)")
-    if ref.device.type == "cpu":
-        return neighbor_group_corr_reference(ref, grid, groups)
+    cuda_build.check_kernel_device("neighbor_group_corr", ref.device)
     gx, gy = grid
-    return _NeighborGroupCorr.apply(ref, gx, gy, groups)
+    return _neighbor_group_corr_op(ref, gx, gy, groups)
 
 
 def neighbor_group_corr_backward_reference(

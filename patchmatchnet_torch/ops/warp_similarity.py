@@ -32,6 +32,7 @@ import torch
 
 from patchmatchnet_torch.ops import cuda_build
 from patchmatchnet_torch.ops.grid_sample import grid_sample_2d
+from patchmatchnet_torch.ops.library import define_kernel_op
 from patchmatchnet_torch.ops.warp import warp_coords
 
 # (channels, groups) pairs the kernel is instantiated for: stages 1, 2, 3
@@ -104,22 +105,37 @@ def _launch_forward(src, mat12, depth, ref, groups):
     return out
 
 
-class _WarpGroupCorr(torch.autograd.Function):
-    """K1 forward, K4 backward; no gradient to mat12 or depth."""
+def _similarity_like(src, mats, depth, ref, *rest):
+    """The [B, G, D, H, W] f32 output of K1 and K6 (groups last)."""
+    b, d, h, w = depth.shape
+    return depth.new_empty((b, rest[-1], d, h, w))
 
-    @staticmethod
-    def forward(ctx, src, mat12, depth, ref, groups):
-        ctx.save_for_backward(src, mat12, depth, ref)
-        ctx.groups = groups
-        return _launch_forward(src, mat12, depth, ref, groups)
 
-    @staticmethod
-    def backward(ctx, dout):
-        src, mat12, depth, ref = ctx.saved_tensors
-        d_src, d_ref = warp_group_corr_backward(src, mat12, depth, ref, ctx.groups,
-                                                dout.contiguous())
-        need = ctx.needs_input_grad
-        return (d_src if need[0] else None, None, None, d_ref if need[3] else None, None)
+# K1 as the operator `pmn::warp_group_corr` (ops/library.py), with K4 (or the
+# plain backward on the CPU) as its gradient
+_warp_group_corr_op = define_kernel_op(
+    "warp_group_corr", "(Tensor src, Tensor mat12, Tensor depth, Tensor ref, int groups) -> Tensor",
+    lambda *args: warp_group_corr_reference(*args).contiguous(), _launch_forward,
+    _similarity_like)
+
+
+def _warp_group_corr_setup(ctx, inputs, output):
+    src, mat12, depth, ref, groups = inputs
+    ctx.save_for_backward(src, mat12, depth, ref)
+    ctx.groups = groups
+
+
+def _warp_group_corr_grad(ctx, dout):
+    """K4 (or its plain version): gradients to src and ref only."""
+    src, mat12, depth, ref = ctx.saved_tensors
+    d_src, d_ref = warp_group_corr_backward(src, mat12, depth, ref, ctx.groups,
+                                            dout.contiguous())
+    need = ctx.needs_input_grad
+    return (d_src if need[0] else None, None, None, d_ref if need[3] else None, None)
+
+
+torch.library.register_autograd(_warp_group_corr_op, _warp_group_corr_grad,
+                                setup_context=_warp_group_corr_setup)
 
 
 def warp_group_corr(
@@ -139,13 +155,13 @@ def warp_group_corr(
         [B, G, D, H, W] f32 similarity volume, differentiable with respect
         to `src` and `ref` (never `mat12` or `depth`).
 
-    CPU tensors run the plain version; CUDA tensors launch the kernel (and
-    K4 in backward), and anything the kernel does not take raises.
+    It calls the operator `torch.ops.pmn.warp_group_corr`: CPU tensors
+    run the plain version (and its autograd in backward); CUDA tensors
+    launch the kernel (and K4 in backward), and anything the kernel does
+    not take raises.
     """
-    mat12, depth = mat12.detach(), depth.detach()
-    if src.device.type == "cpu":
-        return warp_group_corr_reference(src, mat12, depth, ref, groups)
-    return _WarpGroupCorr.apply(src, mat12, depth, ref, groups)
+    cuda_build.check_kernel_device("warp_group_corr", src.device)
+    return _warp_group_corr_op(src, mat12.detach(), depth.detach(), ref, groups)
 
 
 def warp_group_corr_backward_reference(
@@ -310,6 +326,40 @@ def warp_group_corr_views_reference(
     return out
 
 
+def _launch_views(src: torch.Tensor, mats: torch.Tensor, depth: torch.Tensor,
+                  ref: torch.Tensor, view_weights: torch.Tensor, groups: int) -> torch.Tensor:
+    b, v, hs, ws, c = src.shape
+    _, d, h, w = depth.shape
+    if (c, groups) not in SUPPORTED_CHANNELS_GROUPS:
+        raise ValueError(f"warp_group_corr_views: no kernel for C={c}, G={groups}")
+    dev = src.device
+    cuda_build.check_cuda_tensor("src", src, dev, _PAYLOAD_DTYPES, (b, v, hs, ws, c))
+    cuda_build.check_cuda_tensor("ref", ref, dev, (src.dtype,), (b, h, w, c))
+    cuda_build.check_cuda_tensor("mats", mats, dev, (torch.float32,), (b, v, 12))
+    cuda_build.check_cuda_tensor("depth", depth, dev, (torch.float32,), (b, d, h, w))
+    cuda_build.check_cuda_tensor("view_weights", view_weights, dev, (torch.float32,),
+                                 (b, v, h, w))
+    out = torch.empty((b, groups, d, h, w), dtype=torch.float32, device=dev)
+    lib = cuda_build.kernel_library()
+    with torch.cuda.device(dev):
+        rc = lib.pmn_warp_group_corr_views(
+            src.data_ptr(), ref.data_ptr(), mats.data_ptr(), depth.data_ptr(),
+            view_weights.data_ptr(), out.data_ptr(), b, v, d, h, w, hs, ws, c, groups,
+            int(src.dtype == torch.bfloat16), cuda_build.stream_handle(dev),
+        )
+    cuda_build.check_launch("warp_group_corr_views", rc)
+    return out
+
+
+# K6 as the operator `pmn::warp_group_corr_views` (ops/library.py)
+_warp_group_corr_views_op = define_kernel_op(
+    "warp_group_corr_views",
+    "(Tensor src, Tensor mats, Tensor depth, Tensor ref, Tensor view_weights, int groups) "
+    "-> Tensor",
+    lambda *args: warp_group_corr_views_reference(*args).contiguous(), _launch_views,
+    _similarity_like)
+
+
 def warp_group_corr_views(
     src: torch.Tensor, mats: torch.Tensor, depth: torch.Tensor,
     ref: torch.Tensor, view_weights: torch.Tensor, groups: int,
@@ -335,30 +385,10 @@ def warp_group_corr_views(
         Inference only, as in the reference: raises when grad is enabled
         and an input requires it.
 
-    CPU tensors run the plain version; CUDA tensors launch the kernel, and
+    It calls the operator `torch.ops.pmn.warp_group_corr_views`: CPU
+    tensors run the plain version; CUDA tensors launch the kernel, and
     anything the kernel does not take raises.
     """
     _refuse_grad("warp_group_corr_views", src, mats, depth, ref, view_weights)
-    if src.device.type == "cpu":
-        return warp_group_corr_views_reference(src, mats, depth, ref, view_weights, groups)
-    b, v, hs, ws, c = src.shape
-    _, d, h, w = depth.shape
-    if (c, groups) not in SUPPORTED_CHANNELS_GROUPS:
-        raise ValueError(f"warp_group_corr_views: no kernel for C={c}, G={groups}")
-    dev = src.device
-    cuda_build.check_cuda_tensor("src", src, dev, _PAYLOAD_DTYPES, (b, v, hs, ws, c))
-    cuda_build.check_cuda_tensor("ref", ref, dev, (src.dtype,), (b, h, w, c))
-    cuda_build.check_cuda_tensor("mats", mats, dev, (torch.float32,), (b, v, 12))
-    cuda_build.check_cuda_tensor("depth", depth, dev, (torch.float32,), (b, d, h, w))
-    cuda_build.check_cuda_tensor("view_weights", view_weights, dev, (torch.float32,),
-                                 (b, v, h, w))
-    out = torch.empty((b, groups, d, h, w), dtype=torch.float32, device=dev)
-    lib = cuda_build.kernel_library()
-    with torch.cuda.device(dev):
-        rc = lib.pmn_warp_group_corr_views(
-            src.data_ptr(), ref.data_ptr(), mats.data_ptr(), depth.data_ptr(),
-            view_weights.data_ptr(), out.data_ptr(), b, v, d, h, w, hs, ws, c, groups,
-            int(src.dtype == torch.bfloat16), cuda_build.stream_handle(dev),
-        )
-    cuda_build.check_launch("warp_group_corr_views", rc)
-    return out
+    cuda_build.check_kernel_device("warp_group_corr_views", src.device)
+    return _warp_group_corr_views_op(src, mats, depth, ref, view_weights, groups)

@@ -11,8 +11,11 @@
   that loads back, a finite loss and a trace; `--dataset dtu_legacy` builds
   its loaders on the raw DTU layout.
 - `convert` writes the port's state dict of a reference `.ckpt`.
-- Options the port refuses raise, naming the ROADMAP item to come; so does
-  `--device cuda` without CUDA.
+- Options the port refuses (`--num_devices` above 1) raise, naming the
+  ROADMAP item to come; so does `--device cuda` without CUDA.
+- Each host tool's subcommand runs its tool (tests/test_torch_tools.py
+  holds their files against the JAX tools'; tests/test_torch_export.py
+  runs `export` and `eval --input_type module`).
 """
 
 import argparse
@@ -22,6 +25,7 @@ import math
 import os
 import shutil
 
+import numpy as np
 import pytest
 import torch
 
@@ -30,12 +34,20 @@ from patchmatchnet_tpu.config import Config as JaxConfig
 from patchmatchnet_torch import cli
 from patchmatchnet_torch.compat import convert_torch_state_dict
 from patchmatchnet_torch.config import Config
-from patchmatchnet_torch.data import BatchLoader, MVSDataset, make_synthetic_scene, read_ply
+from patchmatchnet_torch.data import (
+    BatchLoader,
+    MVSDataset,
+    make_synthetic_scene,
+    read_ply,
+    save_ply,
+)
 from patchmatchnet_torch.infer import DepthEstimator, FusionConfig, filter_and_fuse, save_depth_maps
 from patchmatchnet_torch.models import PatchmatchNet
 from patchmatchnet_torch.train.driver import load_any_checkpoint
 from tests.test_dtu_legacy import raw_dtu  # noqa: F401  (the fixture)
+from tests.test_tools import _write_synthetic_colmap
 from tests.test_torch_convert import reference_state_dict
+from tests.test_torch_tools import _eth3d, _raw_dtu, _scene_with_maps
 
 CKPT = os.path.join(os.path.dirname(__file__), "..", "checkpoints", "params_000007.msgpack")
 SCENE_ARGS = ["--num_views", "3", "--image_extension", ".png"]
@@ -67,7 +79,7 @@ def _flags(parser):
             for a in parser._actions if a.option_strings and a.dest != "help"}
 
 
-@pytest.mark.parametrize("command", ["train", "eval", "fuse", "convert"])
+@pytest.mark.parametrize("command", ["train", "eval", "fuse", "convert", "export"])
 def test_parser_matches_jax(command, monkeypatch):
     ours, ref = _flags(cli.build_parser(command)), _flags(_jax_parser(command, monkeypatch))
     extra = set(ours) - set(ref)
@@ -190,12 +202,8 @@ def test_convert_writes_the_port_state_dict(tmp_path):
 
 
 @pytest.mark.parametrize("argv,item", [
-    (["eval", "--input_type", "module"], "item 11"),
     (["eval", "--num_devices", "2"], "item 10"),
     (["train", "--num_devices", "2"], "item 10"),
-    (["export"], "item 11"),
-    (["colmap-import"], "item 12"),
-    (["visualize"], "item 12"),
 ])
 def test_refused_options_raise(argv, item, tmp_path):
     required = {"eval": ["--input_folder", str(tmp_path), "--checkpoint_path", CKPT],
@@ -204,6 +212,38 @@ def test_refused_options_raise(argv, item, tmp_path):
     with pytest.raises(SystemExit, match=item):
         cli.main(argv + required.get(argv[0], []) + ["--device", "cpu"] * (argv[0] in required))
     assert not os.listdir(tmp_path)  # refused before any work
+
+
+@pytest.mark.parametrize("command", ["colmap-import", "colmap-export", "convert-dtu",
+                                     "convert-eth3d", "visualize"])
+def test_tool_subcommands_run(command, tmp_path, capsys):
+    src, out = str(tmp_path / "in"), str(tmp_path / "out")
+    scans = os.path.join(src, "scans.txt")
+    if command == "colmap-import":
+        _write_synthetic_colmap(src)
+        argv = ["--input_folder", src, "--output_folder", out, "--model_ext", ".txt"]
+        want = os.path.join(out, "pair.txt")
+    elif command == "colmap-export":
+        _scene_with_maps(src)
+        argv = ["--input_folder", src, "--output_folder", out]
+        want = os.path.join(out, "stereo", "fusion.cfg")
+    elif command == "convert-dtu":
+        _raw_dtu(src, views=1)
+        argv = ["--input_folder", src, "--output_folder", out, "--scan_list", scans]
+        want = os.path.join(out, "scan1", "depth_gt", "00000000.pfm")
+    elif command == "convert-eth3d":
+        _eth3d(src)
+        argv = ["--input_folder", src, "--output_folder", out, "--scan_list", scans]
+        want = os.path.join(out, "courtyard", "masks", "00000002.png")
+    else:
+        os.makedirs(src)
+        want = os.path.join(src, "fused.ply")
+        save_ply(want, np.zeros((3, 3), np.float32), np.zeros((3, 3), np.uint8))
+        argv = ["--ply", want, "--headless"]
+    cli.main([command, *argv])
+    assert os.path.isfile(want)
+    if command == "visualize":
+        assert "0.00 M points" in capsys.readouterr().out
 
 
 def test_orbax_backend_raises(tmp_path):

@@ -1,11 +1,12 @@
 """The port's map, PLY and image codecs against the JAX package's
 (`patchmatchnet_tpu/dataio`): files written by either are byte-identical
 and read back by the other; `read_map` dispatches by extension; images,
-their header sizes and `scaled_dims` match. Shrunk images and maps are
-compared at 1e-5: the port's bilinear shrink (`F.interpolate`) computes the
-source coordinate in f32 where the JAX native resize uses f64 (an ulp of a
-coordinate near 100 is 8e-6 px), and the random test images change by up
-to 1 per pixel."""
+their header sizes and `scaled_dims` match. Shrunk images and maps, and
+`adjust_sample_dims`'s stretch to multiples of 8, equal the JAX package's
+to the bit, also at DTU's and Tanks' sizes: the port's resize follows the
+native resize's arithmetic (f64 source coordinates, f32 weights and lerps).
+`read_image_dictionary` reads what the JAX one reads; `save_pfm` writes
+[H, W, 1] maps as the JAX writer does."""
 
 import filecmp
 
@@ -18,20 +19,29 @@ from patchmatchnet_tpu.dataio import save_map as jax_save_map
 from patchmatchnet_tpu.dataio import save_ply as jax_save_ply
 from patchmatchnet_tpu.dataio.colmap_bin import read_bin as jax_read_bin
 from patchmatchnet_tpu.dataio.colmap_bin import save_bin as jax_save_bin
+from patchmatchnet_tpu.data.mvs import adjust_sample_dims as jax_adjust_sample_dims
+from patchmatchnet_tpu.dataio import read_image_dictionary as jax_read_image_dictionary
+from patchmatchnet_tpu.dataio import read_pfm as jax_read_pfm
+from patchmatchnet_tpu.dataio import save_pfm as jax_save_pfm
 from patchmatchnet_tpu.dataio.image import read_image as jax_read_image
 from patchmatchnet_tpu.dataio.image import read_image_size as jax_read_image_size
 from patchmatchnet_tpu.dataio.image import save_image as jax_save_image
+from patchmatchnet_tpu.dataio.image import scale_to_max_dim as jax_scale_to_max_dim
 from patchmatchnet_tpu.dataio.image import scaled_dims as jax_scaled_dims
 from patchmatchnet_torch.data import (
+    adjust_sample_dims,
     read_bin,
     read_image,
+    read_image_dictionary,
     read_image_size,
     read_map,
     read_ply,
     save_bin,
     save_image,
     save_map,
+    save_pfm,
     save_ply,
+    scale_to_max_dim,
     scaled_dims,
 )
 
@@ -75,7 +85,7 @@ def test_map_dispatch_matches_reference(tmp_path, ext):
     small = read_map(port, max_dim=20)
     want = jax_read_map(port, max_dim=20)
     assert small.shape == want.shape == (20, 15, 1)
-    np.testing.assert_allclose(small, want, rtol=0, atol=1e-5)
+    np.testing.assert_array_equal(small, want)
     with pytest.raises(ValueError, match="only .pfm and .bin"):
         read_map(str(tmp_path / "map.png"))
     with pytest.raises(ValueError, match="only .pfm and .bin"):
@@ -129,7 +139,7 @@ def test_image_decode_size_and_shrink_match_reference(tmp_path):
     small = read_image(path, max_dim=50)
     want = jax_read_image(path, max_dim=50)[0]
     assert small.shape == want.shape == (32, 50, 3)
-    np.testing.assert_allclose(small, want, rtol=0, atol=1e-5)
+    np.testing.assert_array_equal(small, want)
     np.testing.assert_array_equal(read_image(path, max_dim=100), read_image(path))
 
 
@@ -149,3 +159,66 @@ def test_save_image_matches_reference(tmp_path):
         jax_save_image(str(tmp_path / f"ref_{name}.png"), image)
         assert filecmp.cmp(tmp_path / f"port_{name}.png", tmp_path / f"ref_{name}.png",
                            shallow=False), name
+
+
+@pytest.mark.parametrize("size,max_dim", [((1200, 1600), 1152), ((1080, 1920), 1600)])
+def test_shrink_equals_reference_to_the_bit(tmp_path, size, max_dim):
+    """scale_to_max_dim on 8-bit images (x * f32(1/255)), read_image and
+    read_map with max_dim, at DTU's and Tanks' image sizes."""
+    rng = np.random.default_rng(sum(size))
+    levels = rng.integers(0, 256, size + (3,), dtype=np.uint8)
+    image = levels.astype(np.float32) * np.float32(1 / 255)
+    got, want = scale_to_max_dim(image, max_dim), jax_scale_to_max_dim(image, max_dim)
+    assert got[0].shape == want[0].shape and got[1:] == want[1:]
+    np.testing.assert_array_equal(got[0], want[0])
+    path = _write_png(tmp_path / "im.png", levels)
+    np.testing.assert_array_equal(read_image(path, max_dim), jax_read_image(path, max_dim)[0])
+    depth = rng.uniform(425.0, 935.0, size).astype(np.float32)
+    for ext in (".pfm", ".bin"):
+        map_path = str(tmp_path / f"depth{ext}")
+        save_map(map_path, depth)
+        small = read_map(map_path, max_dim)
+        np.testing.assert_array_equal(small, jax_read_map(map_path, max_dim))
+        assert max(small.shape[:2]) <= max_dim
+
+
+@pytest.mark.parametrize("size", [(1067, 1600), (1080, 1913), (60, 84)])
+def test_adjust_sample_dims_equals_reference_to_the_bit(size):
+    """The stretch of a sample's views to multiples of 8, and its
+    intrinsics."""
+    rng = np.random.default_rng(size[1])
+    views = rng.integers(0, 256, (3,) + size + (3,), dtype=np.uint8)
+    k = np.array([[1100.0, 0, size[1] / 2], [0, 1100.0, size[0] / 2], [0, 0, 1]], np.float32)
+    sample = {"images": views.astype(np.float32) * np.float32(1 / 255),
+              "intrinsics": np.tile(k, (3, 1, 1))}
+    got, want = adjust_sample_dims(sample), jax_adjust_sample_dims(sample)
+    assert got["images"].shape == want["images"].shape == (
+        3, int(round(size[0] / 8)) * 8, int(round(size[1] / 8)) * 8, 3)
+    np.testing.assert_array_equal(got["images"], want["images"])
+    np.testing.assert_array_equal(got["intrinsics"], want["intrinsics"])
+    assert (got["orig_height"], got["orig_width"]) == (want["orig_height"], want["orig_width"])
+
+
+def test_grey_image_kept_single_channel_like_reference(tmp_path):
+    levels = np.random.default_rng(4).integers(0, 256, (90, 120), dtype=np.uint8)
+    path = _write_png(tmp_path / "grey.png", levels)
+    got, want = read_image(path, 100, rgb=False), jax_read_image(path, 100)[0]
+    assert got.shape == want.shape == (75, 100)
+    np.testing.assert_array_equal(got, want)
+    np.testing.assert_array_equal(read_image(path, 100)[..., 1], got)
+
+
+def test_image_dictionary_matches_reference(tmp_path):
+    path = tmp_path / "index2prefix.txt"
+    path.write_text("3\n0 images/dslr_images_undistorted/DSC_0286.JPG\n"
+                    "1 images/dslr_images_undistorted/DSC_0287.JPG \n12 b.png\n")
+    got = read_image_dictionary(str(path))
+    assert got == jax_read_image_dictionary(str(path)) and sorted(got) == [0, 1, 12]
+
+
+def test_pfm_with_a_channel_axis_matches_reference(tmp_path):
+    data = np.random.default_rng(8).standard_normal((20, 30, 1)).astype(np.float32)
+    save_pfm(str(tmp_path / "port.pfm"), data)
+    jax_save_pfm(str(tmp_path / "ref.pfm"), data)
+    assert filecmp.cmp(tmp_path / "port.pfm", tmp_path / "ref.pfm", shallow=False)
+    np.testing.assert_array_equal(jax_read_pfm(str(tmp_path / "port.pfm"))[0], data)

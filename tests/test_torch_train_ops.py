@@ -487,7 +487,7 @@ def test_training_dataset_matches_reference(scans, max_dim):
     for idx in (0, 5, 15):
         g, w = got[idx], want[idx]
         assert g["filename"] == w["filename"]
-        np.testing.assert_allclose(g["images"], w["images"], rtol=0, atol=1e-5)
+        np.testing.assert_array_equal(g["images"], w["images"])
         np.testing.assert_allclose(g["intrinsics"], w["intrinsics"], rtol=1e-6)
         np.testing.assert_allclose(g["depth_gt"], w["depth_gt"], rtol=1e-6)
         np.testing.assert_array_equal(g["mask"], w["mask"])
