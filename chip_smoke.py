@@ -128,6 +128,29 @@ result line:
    scan and its maps, then `colmap-import` of that workspace, must give
    back the cameras (and the workspace's patch-match.cfg the pairs).
 
+14. data parallel (`patchmatchnet_torch.parallel`) on one card, each launch
+   of ranks under DP_TIMEOUT: (a) two gloo ranks sharing the card train
+   from the released weights at 640x512, 1 + 4 views, global B = 2 (one
+   row each; sample 1's mask cut to half): an f32 step (TF32 off) against
+   the 1-rank B = 2 step of the same batch and noise in this process
+   (phase 8's bounds: loss 1e-4, cosine 0.999 on the leaves above 1e-3 of
+   the largest norm, statistics 1e-4), the ranks' parameters and running
+   statistics equal after it; then 4 bf16 steps: ms per step per rank,
+   launches per step (must be one rank's `step_launches`), and a traced
+   step's gloo all-reduces (count, host ms) beside its BatchNorm calls;
+   (b) one NCCL rank through the same group, replicate and sync-BN code:
+   its f32 step against the plain one, to the bit or within 1e-6 (the
+   plain step's own repeat printed beside it); (c) two gloo ranks sharing
+   the card run save_depth_maps on a 6-view 1152x864 scene (each view with
+   its 4 nearest sources, bf16, global B = 2) for 6 references and for 5
+   (a short last batch): every map written once, on the plane, equal to
+   the 1-rank B = 2 maps up to another cuDNN algorithm, launches per rank
+   per request K1 4 / K6 4 / K2 5 / K3 3, ms per request per rank; (d)
+   `train` and `eval --num_devices 2 --device cuda` exit non-zero naming
+   the card count before any work on a one-card box, or run through NCCL
+   with two cards (the eval maps held to (c)'s 1-rank maps). Prints the
+   phase's seconds.
+
 The last line is {"ok": true, "device": {...}}; the line before it holds
 the per-kernel JSON summary.
 """
@@ -188,6 +211,14 @@ DTU_RIG_BASELINES = RIG_BASELINES + (1.05,)
 MANY_VIEWS = 64
 # training geometry (the JAX trainer's DTU configuration)
 TRAIN_H, TRAIN_W, TRAIN_VIEWS, TRAIN_BATCH, TRAIN_SCENE_VIEWS = 512, 640, 5, 2, 12
+# data parallel (phase 14): ranks sharing the card and each launch's time
+# limit; (a)'s global batch at the training geometry (one row per rank) and
+# its timed bf16 steps; (c)'s scene of the main path's geometry, whose pair
+# file gives each of its views its 4 nearest sources, served at a global
+# batch of 2: 6 references (3 full batches) and 5 (a short last batch that
+# leaves rank 1 no row)
+DP_RANKS, DP_TIMEOUT, DP_BATCH, DP_TIMED_STEPS = 2, 300, 2, 4
+DP_EVAL_VIEWS, DP_EVAL_BATCH, DP_EVAL_REFS = 6, 2, (6, 5)
 TIMED_STEPS = 6
 # per-train-step launches at N=5 (K2 has no backward; the training tail is plain)
 EXPECTED_PER_STEP = {"warp_group_corr": 20, "warp_group_corr_backward": 20,
@@ -1988,6 +2019,175 @@ def export_path(device, state_dict, scratch, smi) -> None:
             fail(f"the workspace's depth map {v} differs from the module's")
 
 
+def same_maps(label: str, got, want) -> None:
+    """Fail unless (depth, confidence) `got` equals `want` up to another
+    cuDNN algorithm in another process or at another batch size: at most
+    0.1% of the pixels off by more than 1e-3 of the depth range, or by 5e-3
+    in confidence (the share bounds of phase 12 (a) and of the goldens; a
+    bf16 forward at B = 1 and at B = 2 may round otherwise)."""
+    from patchmatchnet_torch.dev.profile_parallel import map_difference
+
+    d = map_difference(got, want)
+    print(f"{label}: {'equal to the bit' if not d['depth_max'] and not d['conf_max'] else 'differ'}"
+          f"; depth max |diff| {d['depth_max']:.3e}, median {d['depth_median']:.3e}, share off "
+          f"by more than 1e-3 of the range {d['depth_share']:.2e}; confidence max "
+          f"{d['conf_max']:.3e}, median {d['conf_median']:.3e}, share > 5e-3 "
+          f"{d['conf_share']:.2e}", flush=True)
+    if d["depth_share"] > 1e-3 or d["conf_share"] > 1e-3:
+        fail(f"{label}: the maps differ (bounds: at most 0.1% of the pixels off)")
+
+
+def data_parallel_path(device, scratch, smi) -> None:
+    """Phase 14: data parallel on one card, through the rank functions of
+    `patchmatchnet_torch.dev.profile_parallel`. (a) two ranks sharing it
+    over gloo, training: an f32 step against the 1-rank step of the same
+    global batch and noise (phase 8's bounds), the ranks' state equal after
+    it, then bf16 steps (ms, launches, collectives); (b) one NCCL rank
+    through the same group, replicate and sync-BN code against the plain
+    step, to the bit or within 1e-6; (c) two ranks sharing the card over
+    gloo, eval: save_depth_maps at the main path's geometry against one
+    rank; (d) the command line's `--num_devices 2 --device cuda`, refused
+    on a one-card box before any work, run through NCCL on two cards."""
+    import numpy as np
+    import torch
+
+    from patchmatchnet_torch.data import PLANE_Z
+    from patchmatchnet_torch.dev.profile_parallel import (
+        bit_equal,
+        check_cli_run,
+        cli_num_devices,
+        eval_rank,
+        eval_scene,
+        one_rank_maps,
+        plain_f32_step,
+        read_maps,
+        relative_errors,
+        train_rank,
+    )
+    from patchmatchnet_torch.parallel import launch
+
+    started = time.perf_counter()
+    print(f"card: {smi}; {DP_RANKS} ranks on one card time-slice it: their times are no "
+          "scaling figure", flush=True)
+    # twice: the spread of the plain step itself (K4's atomics)
+    plain = [plain_f32_step(DP_BATCH, device) for _ in range(2)]
+    floor = relative_errors(plain[1], plain[0])
+    print(f"plain f32 step {TRAIN_W}x{TRAIN_H} 1+{TRAIN_VIEWS - 1} views B={DP_BATCH}: loss "
+          f"{plain[0][0]:.7f}; its repeat: bit-equal {bit_equal(plain[1], plain[0])}, loss rel "
+          f"{floor[0]:.3e}, gradient rel {floor[1]:.3e}, statistics rel {floor[3]:.3e}",
+          flush=True)
+
+    # (a) two ranks sharing the card over gloo: training
+    t0 = time.perf_counter()
+    ranks = [r.value for r in launch(train_rank, DP_RANKS, (DP_BATCH, DP_TIMED_STEPS),
+                                     devices=[device] * DP_RANKS, backend="gloo",
+                                     timeout=DP_TIMEOUT)]
+    loss, grad, cos, stats = relative_errors(ranks[0]["f32"], plain[0])
+    print(f"(a) gloo, {DP_RANKS} ranks on {device}, launch {time.perf_counter() - t0:.1f} s: f32 "
+          f"step loss {ranks[0]['f32'][0]:.7f} (rel {loss:.3e}), gradient rel {grad:.3e}, min "
+          f"cosine {cos:.6f}, statistics rel {stats:.3e} against one rank", flush=True)
+    if not (loss < 1e-4 and cos > 0.999 and stats < 1e-4):
+        fail("(a) the 2-rank f32 step misses the 1-rank step (bounds: loss 1e-4, cosine 0.999, "
+             "statistics 1e-4)")
+    a, b = ranks[0]["f32"][2], ranks[1]["f32"][2]
+    if not all(torch.equal(a[k], b[k]) for k in a):
+        fail("(a) the ranks' parameters or running statistics differ after the f32 step")
+    want = step_launches(TRAIN_VIEWS - 1, 5)
+    for rank, r in enumerate(ranks):
+        per_step = {k: v / DP_TIMED_STEPS for k, v in r["counts"].items()}
+        n, host_ms = r["collectives"].get("gloo:all_reduce", (0, 0.0))
+        print(f"(a) rank {rank} bf16 steps: ms " + " ".join(f"{t:.2f}" for t in r["ms"])
+              + f" (median {statistics.median(r['ms']):.2f}), losses "
+              + " ".join(f"{v:.5f}" for v in r["losses"]) + f"; launches per step {per_step}; "
+              f"traced step: {n} gloo all-reduces, {host_ms:.2f} host ms in them, "
+              f"{r['bn_calls']} BatchNorm calls; all collectives {r['collectives']}", flush=True)
+        if per_step != {k: float(v) for k, v in want.items()}:
+            fail(f"(a) rank {rank} launched {per_step} per step, one rank launches {want}")
+        if not all(math.isfinite(v) for v in r["losses"]):
+            fail(f"(a) rank {rank}: non-finite bf16 loss {r['losses']}")
+        buckets = n - 2 * r["bn_calls"] - 2
+        print(f"(a) rank {rank} all-reduces per step {n} = 2 x {r['bn_calls']} BatchNorm calls "
+              f"(forward, backward) + 2 (loss counts, metrics) + {buckets} DDP bucket(s)",
+              flush=True)
+        if buckets < 1:
+            fail(f"(a) rank {rank}: {n} all-reduces leave no DDP gradient bucket")
+
+    # (b) one NCCL rank through the same group, replicate and sync-BN code
+    t0 = time.perf_counter()
+    nccl = launch(train_rank, 1, (DP_BATCH, 0), devices=[device], backend="nccl",
+                  timeout=DP_TIMEOUT)[0].value["f32"]
+    loss, grad, cos, stats = relative_errors(nccl, plain[0])
+    equal = bit_equal(nccl, plain[0])
+    print(f"(b) nccl, 1 rank on {device}, launch {time.perf_counter() - t0:.1f} s: f32 step "
+          f"{'equal to the plain step to the bit' if equal else 'not bit-equal'}: loss rel "
+          f"{loss:.3e}, gradient rel {grad:.3e}, min cosine {cos:.9f}, statistics rel "
+          f"{stats:.3e}", flush=True)
+    if not equal and not (loss <= 1e-6 and grad <= 1e-6 and stats <= 1e-6):
+        fail("(b) the NCCL rank's step differs from the plain step by more than 1e-6")
+
+    # (c) two ranks sharing the card over gloo: eval at the main path's geometry
+    scene = os.path.join(scratch, "dp_scene")
+    eval_scene(scene, DP_EVAL_VIEWS)
+    one = os.path.join(scratch, "dp_one")
+    for refs in DP_EVAL_REFS:
+        one_rank_maps(scene, os.path.join(one, f"refs{refs}"), DP_EVAL_BATCH, refs, device)
+    t0 = time.perf_counter()
+    two = os.path.join(scratch, "dp_two")
+    ranks = [r.value for r in launch(eval_rank, DP_RANKS,
+                                     (scene, two, DP_EVAL_BATCH, DP_EVAL_REFS),
+                                     devices=[device] * DP_RANKS, backend="gloo",
+                                     timeout=DP_TIMEOUT)]
+    print(f"(c) gloo, {DP_RANKS} ranks on {device}, launch {time.perf_counter() - t0:.1f} s",
+          flush=True)
+    for refs in DP_EVAL_REFS:
+        written = sum(r[refs][0] for r in ranks)
+        if written != refs:
+            fail(f"(c) {refs} references: the ranks wrote {written} maps")
+        for view in range(refs):
+            got = read_maps(os.path.join(two, f"refs{refs}"), view)
+            if not np.isfinite(got[0]).all() or np.median(
+                    np.abs(got[0] - PLANE_Z)) > 0.05 * PLANE_Z:
+                fail(f"(c) {refs} references, view {view}: depth off the plane")
+            same_maps(f"(c) {refs} references, view {view}: 2 ranks vs 1", got,
+                      read_maps(os.path.join(one, f"refs{refs}"), view))
+        for rank, r in enumerate(ranks):
+            n, request_ms, counts, _ = r[refs]
+            want = {k: v * len(request_ms) for k, v in forward_launches(MAIN_VIEWS - 1, 5).items()}
+            later = request_ms[1:] or request_ms
+            print(f"(c) {refs} references, rank {rank}: {n} maps in {len(request_ms)} requests, "
+                  f"ms per request " + " ".join(f"{t:.2f}" for t in request_ms)
+                  + f" (median after the first {statistics.median(later):.2f} ms per map); "
+                  f"launches {counts}", flush=True)
+            if counts != want:
+                fail(f"(c) rank {rank} launched {counts}, expected {want} (K1 4 / K6 4 / K2 5 / "
+                     "K3 3 per request)")
+
+    # (d) the command line: --num_devices 2 on the card(s)
+    cards = torch.cuda.device_count()
+    results = cli_num_devices(scene, scratch, DP_RANKS, DP_EVAL_BATCH)
+    if cards < DP_RANKS:
+        print(f"(d) branch: {cards} card(s), so --num_devices {DP_RANKS} --device cuda must be "
+              "refused", flush=True)
+        for cmd, (_, stderr, rc, out) in results.items():
+            last = (stderr.strip().splitlines() or [""])[-1]
+            print(f"(d) CLI {cmd}: exit code {rc}: {last}", flush=True)
+            if rc == 0 or f"device_count() is {cards}" not in stderr:
+                fail(f"(d) CLI {cmd} --num_devices {DP_RANKS} was not refused naming the card "
+                     "count")
+            if os.path.exists(out):
+                fail(f"(d) CLI {cmd} wrote {out} before refusing")
+    else:
+        print(f"(d) branch: {cards} cards, --num_devices {DP_RANKS} runs through NCCL",
+              flush=True)
+        try:
+            worst = check_cli_run(results, os.path.join(one, f"refs{DP_EVAL_VIEWS}"),
+                                  DP_EVAL_VIEWS, DP_EVAL_VIEWS // DP_EVAL_BATCH)
+        except RuntimeError as err:
+            fail(f"(d) {err}")
+        print(f"(d) CLI train and eval --num_devices {DP_RANKS}: ran; worst map difference vs "
+              f"1 rank {worst}", flush=True)
+    print(f"data parallel phase: {time.perf_counter() - started:.1f} s", flush=True)
+
 def read_training_run(out: str, steps: int):
     """The train records of a CLI training run (metrics.jsonl), after
     checking its checkpoint set, a finite loss logged for each of its
@@ -2110,6 +2310,14 @@ def main() -> int:
     scratch = tempfile.mkdtemp(prefix="smoke_export_", dir=os.path.join(REPO, "build"))
     try:
         export_path(device, state_dict, scratch, smi)
+    finally:
+        shutil.rmtree(scratch, ignore_errors=True)
+
+    phase(f"data parallel: {DP_RANKS} gloo ranks sharing the card (train {TRAIN_W}x{TRAIN_H} "
+          f"B {DP_BATCH}, eval {MAIN_W}x{MAIN_H}), one NCCL rank, the CLI's --num_devices")
+    scratch = tempfile.mkdtemp(prefix="smoke_dp_", dir=os.path.join(REPO, "build"))
+    try:
+        data_parallel_path(device, scratch, smi)
     finally:
         shutil.rmtree(scratch, ignore_errors=True)
 

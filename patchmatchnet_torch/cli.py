@@ -29,7 +29,7 @@ import os
 import statistics
 import sys
 import time
-from typing import Callable, Dict, List, Optional
+from typing import Callable, Dict, List, Optional, Tuple
 
 import torch
 
@@ -44,6 +44,7 @@ from patchmatchnet_torch.infer import (
     save_depth_maps,
 )
 from patchmatchnet_torch.ops import cuda_build
+from patchmatchnet_torch.parallel import Group, launch
 from patchmatchnet_torch.tools import (
     colmap_export,
     colmap_import,
@@ -55,11 +56,7 @@ from patchmatchnet_torch.train.driver import build_model, load_any_checkpoint, r
 
 # Options of the JAX command line that the port has not yet, and the
 # ROADMAP item that brings each.
-NOT_PORTED = {"--num_devices > 1": "ROADMAP item 10 (data parallel)"}
-
-
-def _refuse(what: str, item: str) -> None:
-    raise SystemExit(f"{what} is not ported to patchmatchnet_torch yet: {item}")
+NOT_PORTED: Dict[str, str] = {}
 
 
 def _add_model_args(p: argparse.ArgumentParser) -> None:
@@ -129,7 +126,9 @@ def build_parser(command: str) -> argparse.ArgumentParser:
                        help="msgpack (the default) checkpoints with torch.save; orbax is "
                        "the JAX package's and is refused (run_training raises)")
         p.add_argument("--num_devices", type=int, default=None,
-                       help="1 or unset: data parallel training is not ported yet")
+                       help="train data parallel on this many ranks of --device (NCCL, "
+                       "one rank per card, on cuda; gloo on cpu); batch_size must be a "
+                       "multiple")
         p.add_argument("--profile_dir", type=str, default="",
                        help="write a torch.profiler trace of one train step here")
         _add_device_arg(p)
@@ -144,7 +143,9 @@ def build_parser(command: str) -> argparse.ArgumentParser:
         p.add_argument("--output_type", type=str, default="both",
                        choices=["depth", "fusion", "both"])
         p.add_argument("--num_devices", type=int, default=None,
-                       help="1 or unset: data parallel inference is not ported yet")
+                       help="shard eval batches over this many ranks of --device (NCCL, "
+                       "one rank per card, on cuda; gloo on cpu), each writing the maps "
+                       "of its views; batch_size must be a multiple")
         p.add_argument("--shape_bucket", type=int, default=0,
                        help="round image sizes up to this multiple of 8 (edge-pad, crop "
                        "the outputs back); 0 = exact shapes")
@@ -210,45 +211,82 @@ def _fuse_scans(args: argparse.Namespace, device: torch.device) -> None:
         print(f"Fused {ply} in {time.perf_counter() - start:.3f} s")
 
 
-def cmd_train(argv: List[str]) -> None:
+def _sum_launches(launches: List[Dict[str, int]]) -> Dict[str, int]:
+    total: Dict[str, int] = {}
+    for counts in launches:
+        for name, n in counts.items():
+            total[name] = total.get(name, 0) + n
+    return total
+
+
+def cmd_train(argv: List[str]) -> Dict[str, int]:
+    """Returns the hand-kernel launches of the data-parallel ranks."""
     args = build_parser("train").parse_args(argv)
-    if args.num_devices is not None and args.num_devices > 1:
-        _refuse("--num_devices > 1", NOT_PORTED["--num_devices > 1"])
     if not args.output_folder:
         args.output_folder = args.input_folder
-    run_training(_config_from_args(args), profile_dir=args.profile_dir)
+    launches: List[Dict[str, int]] = []
+    run_training(_config_from_args(args), num_devices=args.num_devices,
+                 profile_dir=args.profile_dir, launches=launches)
+    return _sum_launches(launches)
 
 
-def cmd_eval(argv: List[str]) -> None:
+def _write_depth_maps(group: Optional[Group], args: argparse.Namespace
+                      ) -> Tuple[int, List[float]]:
+    """The depth and confidence maps of eval: all of them, or with `group`
+    those of the rank's rows of each global batch. Returns (maps written,
+    host ms per request)."""
+    device = torch.device(args.device) if group is None else group.device
+    if args.input_type == "module":
+        with open(args.checkpoint_path, "rb") as f:
+            estimator = ModuleEstimator(f.read(), device)
+    else:
+        model = build_model(_config_from_args(args), inference=True)
+        model.load_state_dict(load_any_checkpoint(args.checkpoint_path), strict=True)
+        estimator = DepthEstimator(model, device, bucket_multiple=args.shape_bucket)
+    dataset = MVSDataset(args.input_folder, args.num_views, args.image_extension,
+                         max_dim=args.image_max_dim, scan_list=args.scan_list,
+                         num_light_idx=args.num_light_idx)
+    shard = None if group is None else (group.rank, group.world_size)
+    request_ms: List[float] = []
+    n = save_depth_maps(estimator, BatchLoader(dataset, args.batch_size, shard=shard),
+                        args.output_folder, args.file_format, seed=args.seed,
+                        request_ms=request_ms)
+    return n, request_ms
+
+
+def cmd_eval(argv: List[str]) -> Dict[str, int]:
+    """Returns the hand-kernel launches of the data-parallel ranks."""
     args = build_parser("eval").parse_args(argv)
-    if args.num_devices is not None and args.num_devices > 1:
-        _refuse("--num_devices > 1", NOT_PORTED["--num_devices > 1"])
     if not args.output_folder:
         args.output_folder = args.input_folder
+    num_devices = args.num_devices or 1
+    if args.batch_size % num_devices != 0:
+        raise ValueError(f"batch_size {args.batch_size} must be a multiple of "
+                         f"--num_devices {num_devices}")
     device = torch.device(args.device)
+    launches: List[Dict[str, int]] = []
     if args.output_type in ("depth", "both"):
-        if args.input_type == "module":
-            with open(args.checkpoint_path, "rb") as f:
-                estimator = ModuleEstimator(f.read(), device)
+        start = time.perf_counter()
+        if num_devices == 1:
+            ranks = [_write_depth_maps(None, args)]
         else:
-            model = build_model(_config_from_args(args), inference=True)
-            model.load_state_dict(load_any_checkpoint(args.checkpoint_path), strict=True)
-            estimator = DepthEstimator(model, device, bucket_multiple=args.shape_bucket)
-        dataset = MVSDataset(args.input_folder, args.num_views, args.image_extension,
-                             max_dim=args.image_max_dim, scan_list=args.scan_list,
-                             num_light_idx=args.num_light_idx)
-        start, request_ms = time.perf_counter(), []
-        n = save_depth_maps(estimator, BatchLoader(dataset, args.batch_size), args.output_folder,
-                            args.file_format, seed=args.seed, request_ms=request_ms)
+            results = launch(_write_depth_maps, num_devices, (args,), device_type=device.type)
+            ranks = [r.value for r in results]
+            launches = [r.launches for r in results]
         seconds = time.perf_counter() - start
-        first = request_ms[0] if request_ms else 0.0
-        after = (f", then median {statistics.median(request_ms[1:]):.2f}"
-                 if len(request_ms) > 1 else "")
-        print(f"Wrote {n} depth/confidence map pairs in {seconds:.3f} s ("
-              f"{seconds * 1e3 / max(n, 1):.2f} ms per map); request ms: first "
-              f"{first:.2f} (set-up included){after}")
+        n = sum(count for count, _ in ranks)
+        line = (f"Wrote {n} depth/confidence map pairs in {seconds:.3f} s ("
+                f"{seconds * 1e3 / max(n, 1):.2f} ms per map)")
+        for rank, (count, request_ms) in enumerate(ranks):
+            first = request_ms[0] if request_ms else 0.0
+            after = (f", then median {statistics.median(request_ms[1:]):.2f}"
+                     if len(request_ms) > 1 else "")
+            who = f"rank {rank}: {count} maps, " if num_devices > 1 else ""
+            line += f"; {who}request ms: first {first:.2f} (set-up included){after}"
+        print(line)
     if args.output_type in ("fusion", "both"):
         _fuse_scans(args, device)
+    return _sum_launches(launches)
 
 
 def cmd_fuse(argv: List[str]) -> None:
@@ -277,7 +315,7 @@ def cmd_export(argv: List[str]) -> None:
           f"{time.perf_counter() - start:.3f} s)")
 
 
-COMMANDS: Dict[str, Callable[[List[str]], None]] = {
+COMMANDS: Dict[str, Callable[[List[str]], Optional[Dict[str, int]]]] = {
     "train": cmd_train,
     "eval": cmd_eval,
     "fuse": cmd_fuse,
@@ -296,15 +334,17 @@ def main(argv: Optional[List[str]] = None) -> None:
     if not argv or argv[0] in ("-h", "--help"):
         print(__doc__)
         print("commands:", ", ".join(COMMANDS))
-        print("not yet ported:")
-        for c, item in NOT_PORTED.items():
-            print(f"  {c:<14} {item}")
+        if NOT_PORTED:
+            print("not yet ported:")
+            for c, item in NOT_PORTED.items():
+                print(f"  {c:<14} {item}")
         return
     cmd = argv[0]
     if cmd not in COMMANDS:
         raise SystemExit(f"Unknown command {cmd!r}; choose from {list(COMMANDS)}")
-    COMMANDS[cmd](argv[1:])
-    counts = cuda_build.launch_counts()  # launches of the hand kernels (CUDA only)
+    ranks = COMMANDS[cmd](argv[1:])  # data-parallel ranks' launches (train, eval)
+    # launches of the hand kernels (CUDA only), this process's and its ranks'
+    counts = _sum_launches([cuda_build.launch_counts(), ranks or {}])
     if counts:
         print(f"kernel launches: {counts}")
 

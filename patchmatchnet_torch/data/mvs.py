@@ -24,7 +24,7 @@ import os
 import random
 from collections import deque
 from concurrent.futures import ThreadPoolExecutor
-from typing import Any, Dict, Iterator, List, Sequence, Tuple
+from typing import Any, Dict, Iterator, List, Optional, Sequence, Tuple
 
 import numpy as np
 
@@ -36,6 +36,7 @@ from patchmatchnet_torch.data.codecs import (
     resize_images,
     scale_to_max_dim,
 )
+from patchmatchnet_torch.parallel.mesh import rank_rows
 
 _EPOCH_STRIDE = 1000003
 
@@ -133,10 +134,14 @@ class MVSDataset:
         }
 
 
-def _stack_batch(samples: Sequence[Dict[str, Any]]) -> Dict[str, Any]:
-    return {k: [s[k] for s in samples] if isinstance(v, str)
-            else np.stack([s[k] for s in samples])
-            for k, v in samples[0].items()}
+def _stack_batch(samples: Sequence[Dict[str, Any]],
+                 rows: Optional[Tuple[int, int]] = None) -> Dict[str, Any]:
+    batch = {k: [s[k] for s in samples] if isinstance(v, str)
+             else np.stack([s[k] for s in samples])
+             for k, v in samples[0].items()}
+    if rows is not None:
+        batch["rows"] = rows
+    return batch
 
 
 class BatchLoader:
@@ -144,11 +149,18 @@ class BatchLoader:
     epoch, see the module note; `set_epoch` picks the epoch), optionally
     dropping a last short batch. With `num_threads` > 1 a thread pool loads
     samples concurrently (PIL and numpy release the GIL), keeping up to
-    `prefetch` batches in flight."""
+    `prefetch` batches in flight.
+
+    With `shard` = (rank, world size), `batch_size` is the global batch: the
+    order and the view choice stay those of the unsharded loader, and only
+    the rank's rows of each global batch are loaded (`parallel.rank_rows`:
+    contiguous, ceil(rows / world size) each). Each batch records
+    (first row, rows) of its global batch under "rows". A short last batch
+    may leave a rank no rows, and that rank then has one batch fewer."""
 
     def __init__(self, dataset: MVSDataset, batch_size: int = 1, num_threads: int = 4,
                  prefetch: int = 2, shuffle: bool = False, drop_last: bool = False,
-                 seed: int = 0):
+                 seed: int = 0, shard: Optional[Tuple[int, int]] = None):
         self.dataset = dataset
         self.batch_size = batch_size
         self.num_threads = max(1, num_threads)
@@ -157,34 +169,51 @@ class BatchLoader:
         self.drop_last = drop_last
         self.seed = seed
         self.epoch = 0
+        self.shard = shard
 
     def set_epoch(self, epoch: int) -> None:
         self.epoch = epoch
         self.dataset.epoch = epoch
 
     def __len__(self) -> int:
-        n = len(self.dataset)
-        return n // self.batch_size if self.drop_last else -(-n // self.batch_size)
+        return len(self._batches())
 
     def _load(self, idx: int) -> Dict[str, Any]:
         return adjust_sample_dims(self.dataset[idx])
 
-    def __iter__(self) -> Iterator[Dict[str, Any]]:
+    def _batches(self) -> List[Tuple[List[int], Optional[Tuple[int, int]]]]:
+        """(dataset indices to load, (first row, rows) of the global batch
+        or None when unsharded) per batch."""
         order = list(range(len(self.dataset)))
         if self.shuffle:
             random.Random(self.seed + _EPOCH_STRIDE * self.epoch).shuffle(order)
         batches = [order[i : i + self.batch_size] for i in range(0, len(order), self.batch_size)]
         if self.drop_last:
             batches = [b for b in batches if len(b) == self.batch_size]
+        if self.shard is None:
+            return [(b, None) for b in batches]
+        rank, world = self.shard
+        out = []
+        for b in batches:
+            rows = rank_rows(len(b), rank, world)
+            if rows.start < rows.stop:
+                out.append((b[rows], (rows.start, len(b))))
+        return out
+
+    def __iter__(self) -> Iterator[Dict[str, Any]]:
+        batches = self._batches()
         if self.num_threads == 1:
-            for batch in batches:
-                yield _stack_batch([self._load(i) for i in batch])
+            for indices, rows in batches:
+                yield _stack_batch([self._load(i) for i in indices], rows)
             return
+        def collect(futures, rows):
+            return _stack_batch([f.result() for f in futures], rows)
+
         with ThreadPoolExecutor(max_workers=self.num_threads) as pool:
             pending: deque = deque()
-            for batch in batches:
-                pending.append([pool.submit(self._load, i) for i in batch])
+            for indices, rows in batches:
+                pending.append(([pool.submit(self._load, i) for i in indices], rows))
                 if len(pending) == self.prefetch:
-                    yield _stack_batch([f.result() for f in pending.popleft()])
+                    yield collect(*pending.popleft())
             while pending:
-                yield _stack_batch([f.result() for f in pending.popleft()])
+                yield collect(*pending.popleft())

@@ -53,7 +53,9 @@ class DepthEstimator:
     @torch.inference_mode()
     def __call__(self, batch: Dict[str, Any],
                  generator: torch.Generator) -> Tuple[np.ndarray, np.ndarray]:
-        """batch: adjusted sample batch (see data.adjust_sample_dims);
+        """batch: adjusted sample batch (see data.adjust_sample_dims), or a
+        rank's rows of one (data parallel: the noise is then drawn for the
+        global batch and sliced, as the JAX estimator shards it);
         `generator` (on this estimator's device) draws the stage-3 noise.
         Returns (depth [B, Ho, Wo], confidence [B, Ho, Wo]) as numpy arrays at
         the original resolution."""
@@ -65,8 +67,11 @@ class DepthEstimator:
             images = np.pad(images, ((0, 0), (0, 0), (0, hb - h0), (0, wb - w0), (0, 0)),
                             mode="edge")
         h, w = images.shape[2:4]
-        noise = torch.rand((b, INITIAL_NUM_SAMPLES, h // 8, w // 8),
-                           generator=generator, device=self.device)
+        # the noise of the whole global batch, of which a rank's batch
+        # (`BatchLoader(shard=...)`) takes its rows
+        start, rows = batch.get("rows", (0, b))
+        noise = torch.rand((rows, INITIAL_NUM_SAMPLES, h // 8, w // 8),
+                           generator=generator, device=self.device)[start:start + b]
         depth, confidence = self._forward(
             self._tensor(images),
             self._tensor(batch["intrinsics"]).float(),
@@ -127,10 +132,13 @@ def save_depth_maps(
     """Run inference over a loader and write depth_est/ + confidence/ maps in
     `file_format` (.pfm or COLMAP .bin), named as the reference names them
     ("depth_est/{view:08d}.pfm" etc.). The stage-3 noise comes from one
-    torch.Generator seeded with `seed`. With `request_ms`, appends each
+    torch.Generator seeded with `seed`; under data parallel each rank's
+    loader holds its rows of every global batch (`BatchLoader(shard=...)`),
+    draws each global batch's noise from its own generator of that seed
+    and writes the maps of its own views. With `request_ms`, appends each
     estimator call's host milliseconds to it (the call returns host
     arrays, so its device work is done). Returns the number of maps
-    written."""
+    written (by this rank)."""
     generator = torch.Generator(device=estimator.device).manual_seed(seed)
     count = 0
     for batch in loader:

@@ -17,7 +17,9 @@ channel-first volumes [B, C, ...] by folding the trailing dims into 2-D.
 BatchNorm follows the module's mode: `model.eval()` folds the running
 statistics to one multiply-add; `model.train()` normalizes with the batch
 statistics and updates the running ones as flax `nn.BatchNorm(momentum=0.9,
-epsilon=1e-5)` does (reference: `layers.apply_batch_norm`).
+epsilon=1e-5)` does (reference: `layers.apply_batch_norm`). With a process
+group set (`parallel.replicate`), the batch is the global one over the
+group's ranks, as under the JAX package's sharded jit (sync-BN).
 
 Initialization is torch's default (kaiming_uniform(a=sqrt(5)) weights,
 U(+-1/sqrt(fan_in)) biases), which the reference reproduces with
@@ -30,6 +32,8 @@ from __future__ import annotations
 from typing import Optional
 
 import torch
+import torch.distributed as dist
+import torch.distributed.nn.functional as dist_nn
 import torch.nn as nn
 import torch.nn.functional as F
 
@@ -63,7 +67,15 @@ class BatchNorm(nn.Module):
     momentum 0.9): f32 batch mean and biased variance over every axis but
     1, computed as E[x^2] - E[x]^2 clipped at 0 like flax; output in the
     input dtype; the running statistics move to 0.9 * old + 0.1 * batch,
-    once per call."""
+    once per call.
+
+    `group` (None, or a process group that `parallel.replicate` sets) makes
+    the train-mode batch the global one: each call all-reduces one packed
+    f32 tensor (E[x] and E[x^2] per channel, element count) with a
+    differentiable sum (`torch.distributed.nn.functional.all_reduce`, whose
+    backward sums the ranks' gradients), so the mean, the variance, their
+    gradients and the running statistics are those of the global batch on
+    every rank."""
 
     def __init__(self, channels: int):
         super().__init__()
@@ -71,6 +83,8 @@ class BatchNorm(nn.Module):
         self.bias = nn.Parameter(torch.zeros(channels))
         self.register_buffer("running_mean", torch.zeros(channels))
         self.register_buffer("running_var", torch.ones(channels))
+        self.group: Optional[dist.ProcessGroup] = None
+        self._checked_counts: set = set()  # element counts sync-BN has checked
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         shape = (1, -1) + (1,) * (x.dim() - 2)
@@ -78,7 +92,10 @@ class BatchNorm(nn.Module):
             dims = [0] + list(range(2, x.dim()))
             xf = x.float()
             mean = xf.mean(dim=dims)
-            var = torch.clamp((xf * xf).mean(dim=dims) - mean * mean, min=0.0)
+            mean_sq = (xf * xf).mean(dim=dims)
+            if self.group is not None:
+                mean, mean_sq = self._global_means(mean, mean_sq, xf.numel() // xf.shape[1])
+            var = torch.clamp(mean_sq - mean * mean, min=0.0)
             with torch.no_grad():
                 self.running_mean.mul_(0.9).add_(0.1 * mean)
                 self.running_var.mul_(0.9).add_(0.1 * var)
@@ -88,6 +105,26 @@ class BatchNorm(nn.Module):
         scale = self.weight * torch.rsqrt(self.running_var + 1e-5)
         bias = self.bias - self.running_mean * scale
         return x * scale.to(x.dtype).view(shape) + bias.to(x.dtype).view(shape)
+
+    def _global_means(self, mean: torch.Tensor, mean_sq: torch.Tensor, count: int):
+        """The means over the group's ranks of the local E[x] and E[x^2]:
+        the global batch's, since every rank holds as many elements (equal
+        rows of one global batch). The packed count checks that, reading it
+        on the host (a sync) only the first time this module sees `count`,
+        so a training step's launches queue up unbroken after the first.
+        One rank gets its own means back to the bit."""
+        c = mean.numel()
+        packed = torch.cat([mean, mean_sq, mean.new_full((1,), count)])
+        packed = dist_nn.all_reduce(packed, group=self.group)
+        world = dist.get_world_size(self.group)
+        if count not in self._checked_counts:
+            # f32 sums integers exactly only below 2**24: compare relatively
+            total = float(packed[2 * c].detach())
+            if abs(total - world * count) > 1e-4 * world * count:
+                raise ValueError("sync-BN needs the same number of elements on every rank, got "
+                                 f"{count} here and {total:.0f} over {world} ranks")
+            self._checked_counts.add(count)
+        return packed[:c] / world, packed[c:2 * c] / world
 
 
 class Conv2d(nn.Module):

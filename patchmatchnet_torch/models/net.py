@@ -26,6 +26,7 @@ import contextlib
 from typing import Dict, Iterator, List, Optional, Sequence, Tuple
 
 import torch
+import torch.distributed as dist
 import torch.nn as nn
 import torch.nn.functional as F
 
@@ -191,6 +192,7 @@ def patchmatchnet_loss(
     depth_patchmatch: Dict[int, List[torch.Tensor]],
     depth_gt: Sequence[torch.Tensor],
     mask: Sequence[torch.Tensor],
+    group: Optional[dist.ProcessGroup] = None,
 ) -> torch.Tensor:
     """Masked smooth-L1 summed over every iteration of every stage
     (reference: net.py `patchmatchnet_loss`).
@@ -199,11 +201,18 @@ def patchmatchnet_loss(
         depth_patchmatch: {stage: [depths [B, H_s, W_s]]}, stages 0..3.
         depth_gt / mask: per-stage GT pyramid, each [B, H_s, W_s] (mask
             boolean), stage 0 at full resolution.
+        group: data-parallel ranks holding the rest of the global batch.
+            Each stage's masked sum is then divided by the global batch's
+            mask count (one all-reduce of the four counts), so the ranks'
+            losses sum to the loss of the global batch.
     """
+    masks = [m.float() for m in mask]
+    counts = torch.stack([m.sum() for m in masks])
+    if group is not None:
+        dist.all_reduce(counts, group=group)
+    counts = counts.clamp(min=1.0)
     loss = torch.zeros((), dtype=torch.float32, device=depth_gt[0].device)
     for i in range(4):
-        m = mask[i].float()
-        denom = m.sum().clamp(min=1.0)
         for depth in depth_patchmatch[i]:
-            loss = loss + (smooth_l1_loss(depth, depth_gt[i]) * m).sum() / denom
+            loss = loss + (smooth_l1_loss(depth, depth_gt[i]) * masks[i]).sum() / counts[i]
     return loss

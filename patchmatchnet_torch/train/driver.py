@@ -1,5 +1,6 @@
 """Training driver: epochs, warm start and resume, logging, checkpoints and
-validation on one device (reference: `patchmatchnet_tpu/train/driver.py`).
+validation, on one device or data parallel over ranks (reference:
+`patchmatchnet_tpu/train/driver.py`).
 
 Per epoch it trains on a shuffled, drop-last loader of the train scans
 (the unified layout's `MVSDataset`, or the raw DTU layout's
@@ -17,15 +18,18 @@ second step.
 The stage-3 noise of global step s is drawn from a generator seeded with
 (rand_seed, s), and the loader's order and view choice depend on (seed,
 epoch) only, so a run resumed from a checkpoint continues with the batches
-and noise the uninterrupted run would have used.
+and noise the uninterrupted run would have used. Data parallel ranks load
+their rows of the same global batches and take their rows of the same
+noise, so their step is the one-device step of the global batch.
 """
 
 from __future__ import annotations
 
 import os
-from typing import Any, Dict, List
+from typing import Any, Dict, List, Optional
 
 import torch
+import torch.distributed as dist
 
 from patchmatchnet_torch.compat import (
     convert_torch_checkpoint,
@@ -36,6 +40,7 @@ from patchmatchnet_torch.config import Config
 from patchmatchnet_torch.data import BatchLoader, DTULegacyDataset, MVSDataset
 from patchmatchnet_torch.models import PatchmatchNet
 from patchmatchnet_torch.models.patchmatch import INITIAL_NUM_SAMPLES
+from patchmatchnet_torch.parallel import Group, launch, replicate, shard_batch
 from patchmatchnet_torch.train.loop import (
     batch_to_device,
     eval_step,
@@ -84,21 +89,52 @@ def load_model_weights(model: PatchmatchNet, path: str) -> None:
     model.load_state_dict(load_any_checkpoint(path), strict=True)
 
 
-def step_noise(batch: Dict[str, torch.Tensor], seed: int, step: int) -> torch.Tensor:
-    """Stage-3 noise [B, 48, H/8, W/8] of global step `step`."""
+def step_noise(batch: Dict[str, torch.Tensor], seed: int, step: int,
+               group: Optional[Group] = None) -> torch.Tensor:
+    """Stage-3 noise [B, 48, H/8, W/8] of global step `step`. With `group`,
+    `batch` is the rank's rows of the global batch, and the noise is the
+    rank's rows of the global batch's noise, so N ranks see what 1 sees."""
     b, _, h, w = batch["images"].shape[:4]
+    world = 1 if group is None else group.world_size
     dev = batch["images"].device
     gen = torch.Generator(device=dev).manual_seed(seed * _NOISE_STRIDE + step)
-    return torch.rand((b, INITIAL_NUM_SAMPLES, h // 8, w // 8), generator=gen, device=dev)
+    noise = torch.rand((b * world, INITIAL_NUM_SAMPLES, h // 8, w // 8), generator=gen,
+                       device=dev)
+    return noise if group is None else shard_batch({"noise": noise}, group)["noise"]
 
 
-def run_training(cfg: Config, profile_dir: str = "") -> List[Dict[str, Any]]:
+def run_training(cfg: Config, num_devices: Optional[int] = None, profile_dir: str = "",
+                 launches: Optional[List[Dict[str, int]]] = None) -> List[Dict[str, Any]]:
     """Train as configured; returns the logged train records (one per
     `summary_freq` steps: loss, metrics, lr, step_ms, data_ms). With
     `profile_dir`, writes a trace of the first epoch's second step (its
-    only step if it has one) to `profile_dir/trace.json`."""
+    only step if it has one) to `profile_dir/trace.json`.
+
+    `num_devices` > 1 trains data parallel: that many ranks on
+    `cfg.train.device`'s type (`parallel.launch`: NCCL, one rank per card,
+    on CUDA; gloo on the CPU), each stepping its rows of every global batch
+    of `batch_size` (which they must divide) with the global batch's
+    statistics, loss and gradient. Rank 0 writes the config, the metrics,
+    the checkpoints and the trace, prints, and validates unsharded while
+    the others wait; the records returned are rank 0's, and `launches`, if
+    given, receives each rank's hand-kernel launch counts."""
+    n = num_devices or 1
+    if cfg.data.batch_size % n != 0:
+        raise ValueError(f"batch_size {cfg.data.batch_size} must be divisible by {n} devices")
+    if n == 1:
+        return _train(None, cfg, profile_dir)
+    results = launch(_train, n, (cfg, profile_dir), device_type=torch.device(cfg.train.device).type)
+    if launches is not None:
+        launches.extend(r.launches for r in results)
+    return results[0].value
+
+
+def _train(group: Optional[Group], cfg: Config, profile_dir: str) -> List[Dict[str, Any]]:
+    """The training run of one process: the whole run, or with `group` one
+    rank of a data-parallel run."""
     t, d = cfg.train, cfg.data
-    device = torch.device(t.device)
+    device = torch.device(t.device) if group is None else group.device
+    lead = group is None or group.rank == 0
     if device.type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError(f"device {device} requested but CUDA is not available")
     if t.ckpt_backend != "msgpack":
@@ -107,8 +143,9 @@ def run_training(cfg: Config, profile_dir: str = "") -> List[Dict[str, Any]]:
                          "backend and stays out of the port (ROADMAP item 12)")
     if d.dataset not in ("unified", "dtu_legacy"):
         raise ValueError(f"dataset must be unified or dtu_legacy, got {d.dataset!r}")
-    os.makedirs(t.output_folder, exist_ok=True)
-    cfg.save(os.path.join(t.output_folder, "config.json"))
+    if lead:
+        os.makedirs(t.output_folder, exist_ok=True)
+        cfg.save(os.path.join(t.output_folder, "config.json"))
 
     def dataset(scan_list: str, robust: bool):
         if d.dataset == "dtu_legacy":  # num_views counts the reference view
@@ -119,9 +156,9 @@ def run_training(cfg: Config, profile_dir: str = "") -> List[Dict[str, Any]]:
                           num_light_idx=d.num_light_idx, robust_train=robust,
                           seed=t.rand_seed)
 
+    shard = None if group is None else (group.rank, group.world_size)
     train_loader = BatchLoader(dataset(t.train_list, t.robust_train), d.batch_size,
-                               shuffle=True, drop_last=True, seed=t.rand_seed)
-    val_loader = BatchLoader(dataset(t.test_list, False), d.batch_size)
+                               shuffle=True, drop_last=True, seed=t.rand_seed, shard=shard)
     steps_per_epoch = len(train_loader)
     if steps_per_epoch == 0:
         raise ValueError("the train set holds fewer samples than one batch")
@@ -134,15 +171,21 @@ def run_training(cfg: Config, profile_dir: str = "") -> List[Dict[str, Any]]:
     start_epoch = 0
     ckpt_path = t.checkpoint_path or find_latest_checkpoint(t.output_folder)
     if t.resume and ckpt_path and os.path.isfile(ckpt_path):
-        print(f"Resuming from {ckpt_path}")
+        if lead:
+            print(f"Resuming from {ckpt_path}")
         _, last_epoch = load_train_checkpoint(ckpt_path, model, optimizer)
         start_epoch = last_epoch + 1
     elif t.checkpoint_path and os.path.isfile(t.checkpoint_path):
         load_model_weights(model, t.checkpoint_path)
-    print(f"Number of model parameters: {sum(p.numel() for p in model.parameters())}; "
-          f"device {device}; steps/epoch: {steps_per_epoch}")
+    net = model if group is None else replicate(model, group)
+    process_group = None if group is None else group.process_group
+    if lead:
+        ranks = "" if group is None else f"; {group.world_size} ranks"
+        print(f"Number of model parameters: {sum(p.numel() for p in model.parameters())}; "
+              f"device {device}{ranks}; steps/epoch: {steps_per_epoch}")
 
-    logger = MetricsLogger(t.output_folder)
+    logger = MetricsLogger(t.output_folder) if lead else None
+    val_loader = BatchLoader(dataset(t.test_list, False), d.batch_size) if lead else None
     history: List[Dict[str, Any]] = []
     timer = PhaseTimer(device)
     traced_step = min(1, steps_per_epoch - 1)
@@ -155,13 +198,16 @@ def run_training(cfg: Config, profile_dir: str = "") -> List[Dict[str, Any]]:
                 with timer("data", sync=False):
                     tensors = batch_to_device(next(batches), device)
                 lr = schedule(global_step)
-                capture = bool(profile_dir) and epoch == start_epoch and batch_idx == traced_step
+                capture = (lead and bool(profile_dir) and epoch == start_epoch
+                           and batch_idx == traced_step)
                 logged = global_step % t.summary_freq == 0
                 with torch_trace(profile_dir if capture else None), \
                         timer("step", sync=capture or logged):
-                    metrics, images = train_step(model, optimizer, tensors, lr,
-                                                 step_noise(tensors, t.rand_seed, global_step))
-                if logged:
+                    metrics, images = train_step(
+                        net, optimizer, tensors, lr,
+                        step_noise(tensors, t.rand_seed, global_step, group),
+                        group=process_group)
+                if logged and lead:
                     record = {k: float(v) for k, v in metrics.items()}
                     record.update(lr=lr, step_ms=timer.last["step"] * 1e3,
                                   data_ms=timer.last["data"] * 1e3)
@@ -172,27 +218,39 @@ def run_training(cfg: Config, profile_dir: str = "") -> List[Dict[str, Any]]:
                     peak = f", peak {record['peak_mib']:.1f} MiB" if "peak_mib" in record else ""
                     print(f"Epoch {epoch + 1}/{t.epochs}, Iter {batch_idx + 1}/{steps_per_epoch}, "
                           f"loss = {record['loss']:.3f}, step {record['step_ms']:.1f} ms{peak}")
-                if global_step % (50 * t.summary_freq) == 0:
+                if global_step % (50 * t.summary_freq) == 0 and lead:
                     for name, img in images.items():
                         logger.image("train", name, img[0].float().cpu().numpy(), global_step)
-            print(f"epoch phases: {timer.summary()}")
-
-            if (epoch + 1) % t.save_freq == 0:
-                step = (epoch + 1) * steps_per_epoch
-                save_train_checkpoint(os.path.join(t.output_folder, f"params_{epoch:06d}.ckpt.pt"),
-                                      model, optimizer, step, epoch)
-                torch.save(model.state_dict(),
-                           os.path.join(t.output_folder, f"module_{epoch:06d}.pt"))
-
-            meter = DictAverageMeter()
-            for i, batch in enumerate(val_loader):
-                tensors = batch_to_device(batch, device)
-                noise = step_noise(tensors, t.rand_seed + 1, epoch * len(val_loader) + i)
-                meter.update({k: float(v) for k, v in eval_step(model, tensors, noise).items()})
-            means = meter.mean()
-            logger.scalars("full_test", means, (epoch + 1) * steps_per_epoch)
-            print(f"avg_test_scalars: {means}")
+            if lead:
+                print(f"epoch phases: {timer.summary()}")
+                _save_and_validate(cfg, model, optimizer, epoch, steps_per_epoch, device,
+                                   val_loader, logger)
+            if group is not None:
+                dist.barrier(group=process_group)
     finally:
-        logger.close()
+        if logger is not None:
+            logger.close()
     return history
 
+
+def _save_and_validate(cfg: Config, model: PatchmatchNet, optimizer: torch.optim.Optimizer,
+                       epoch: int, steps_per_epoch: int, device: torch.device,
+                       val_loader: BatchLoader, logger: MetricsLogger) -> None:
+    """The end of an epoch (rank 0 alone under data parallel, as the JAX
+    driver validates unsharded): checkpoints every `save_freq` epochs, then
+    validation on running statistics."""
+    t = cfg.train
+    if (epoch + 1) % t.save_freq == 0:
+        step = (epoch + 1) * steps_per_epoch
+        save_train_checkpoint(os.path.join(t.output_folder, f"params_{epoch:06d}.ckpt.pt"),
+                              model, optimizer, step, epoch)
+        torch.save(model.state_dict(), os.path.join(t.output_folder, f"module_{epoch:06d}.pt"))
+
+    meter = DictAverageMeter()
+    for i, batch in enumerate(val_loader):
+        tensors = batch_to_device(batch, device)
+        noise = step_noise(tensors, t.rand_seed + 1, epoch * len(val_loader) + i)
+        meter.update({k: float(v) for k, v in eval_step(model, tensors, noise).items()})
+    means = meter.mean()
+    logger.scalars("full_test", means, (epoch + 1) * steps_per_epoch)
+    print(f"avg_test_scalars: {means}")

@@ -1,12 +1,18 @@
 """Train and eval steps, learning-rate schedule, optimizer and checkpoints
 (reference: `patchmatchnet_tpu/train/loop.py`).
 
-One device, no data parallelism. The step is eager PyTorch: the forward
-runs the model in train mode (batch-statistic BatchNorm, K1/K3 forward and
-K4/K5 backward kernels on CUDA), the loss is the masked smooth-L1 over the
-GT pyramid, and Adam applies the update. The f32 trainer
-(`compute_dtype=None`) keeps TF32 off through forward and backward, as the
-inference forward does.
+The step is eager PyTorch: the forward runs the model in train mode
+(batch-statistic BatchNorm, K1/K3 forward and K4/K5 backward kernels on
+CUDA), the loss is the masked smooth-L1 over the GT pyramid, and Adam
+applies the update. The f32 trainer (`compute_dtype=None`) keeps TF32 off
+through forward and backward, as the inference forward does.
+
+Data parallel: each rank steps its rows of the global batch with the model
+that `parallel.replicate` wrapped (sync-BN, DistributedDataParallel) and
+the group's process group. The loss divides by the global mask counts and
+each rank backpropagates world size x its share, so DDP's gradient average
+is the gradient of the global batch's loss, as in the JAX package's
+sharded step; the returned loss and metrics are the global ones.
 
 Checkpoints are `torch.save` files {epoch, step, model, optimizer};
 `load_train_checkpoint` also resumes from the reference's
@@ -17,10 +23,12 @@ from __future__ import annotations
 
 import contextlib
 import os
-from typing import Any, Callable, Dict, Iterable, List, Sequence, Tuple
+from typing import Any, Callable, Dict, Iterable, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
+import torch.distributed as dist
+from torch.nn.parallel import DistributedDataParallel
 
 from patchmatchnet_torch.compat import read_flax_msgpack, train_state_from_jax
 from patchmatchnet_torch.models.net import PatchmatchNet, full_f32, patchmatchnet_loss
@@ -74,8 +82,12 @@ def make_optimizer(params: Iterable[torch.nn.Parameter], learning_rate: float,
                             weight_decay=weight_decay)
 
 
-def _precision(model: PatchmatchNet):
-    return full_f32() if model.compute_dtype is None else contextlib.nullcontext()
+def _unwrap(model: torch.nn.Module) -> torch.nn.Module:
+    return model.module if isinstance(model, DistributedDataParallel) else model
+
+
+def _precision(model: torch.nn.Module):
+    return full_f32() if _unwrap(model).compute_dtype is None else contextlib.nullcontext()
 
 
 def _compute_metrics(dp: Dict[int, List[torch.Tensor]], gts: Sequence[torch.Tensor],
@@ -89,31 +101,41 @@ def _compute_metrics(dp: Dict[int, List[torch.Tensor]], gts: Sequence[torch.Tens
     return metrics
 
 
-def train_step(model: PatchmatchNet, optimizer: torch.optim.Optimizer,
+def train_step(model: torch.nn.Module, optimizer: torch.optim.Optimizer,
                batch: Dict[str, torch.Tensor], lr: float, init_noise: torch.Tensor,
-               with_grads: bool = False
+               with_grads: bool = False, group: Optional[dist.ProcessGroup] = None
                ) -> Tuple[Dict[str, Any], Dict[str, torch.Tensor]]:
     """One optimizer step at learning rate `lr` on a device batch
     (`batch_to_device`); `init_noise` [B, 48, H/8, W/8] is the stage-3
     noise. Returns (metrics, image summaries) as device tensors: "loss", the
     per-stage depth errors and threshold errors, and with `with_grads` the
-    parameter gradients by name under "grads"."""
+    parameter gradients by name under "grads". With `group`, `model` is a
+    `parallel.replicate` replica, the batch and noise are this rank's rows
+    of the global batch, and the metrics are reduced over the group (one
+    all-reduce: the loss summed, the per-image means averaged over equal
+    shares)."""
+    world = 1 if group is None else dist.get_world_size(group)
     model.train()
     gts, masks = build_stage_pyramid(batch["depth_gt"], batch["mask"])
     optimizer.zero_grad(set_to_none=True)
     with _precision(model):
         _, _, dp = model(batch["images"], batch["intrinsics"], batch["extrinsics"],
                          batch["depth_min"], batch["depth_max"], init_noise=init_noise)
-        loss = patchmatchnet_loss(dp, gts, masks)
-        loss.backward()
-    grads = ({name: p.grad.detach().clone() for name, p in model.named_parameters()
+        loss = patchmatchnet_loss(dp, gts, masks, group)
+        (loss * world if world > 1 else loss).backward()
+    grads = ({name: p.grad.detach().clone() for name, p in _unwrap(model).named_parameters()
               if p.grad is not None} if with_grads else None)
-    for group in optimizer.param_groups:
-        group["lr"] = lr
+    for param_group in optimizer.param_groups:
+        param_group["lr"] = lr
     optimizer.step()
     with torch.no_grad():
         dp = {s: [d.detach() for d in v] for s, v in dp.items()}
         metrics: Dict[str, Any] = {"loss": loss.detach(), **_compute_metrics(dp, gts, masks)}
+        if group is not None:
+            packed = torch.stack(list(metrics.values()))
+            dist.all_reduce(packed, group=group)
+            metrics = {k: v if k == "loss" else v / world
+                       for k, v in zip(metrics, packed)}
         if grads is not None:
             metrics["grads"] = grads
         m0 = masks[0].float()

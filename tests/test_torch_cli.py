@@ -11,8 +11,9 @@
   that loads back, a finite loss and a trace; `--dataset dtu_legacy` builds
   its loaders on the raw DTU layout.
 - `convert` writes the port's state dict of a reference `.ckpt`.
-- Options the port refuses (`--num_devices` above 1) raise, naming the
-  ROADMAP item to come; so does `--device cuda` without CUDA.
+- A batch size that `--num_devices` does not divide is refused before any
+  work, with the JAX messages; so is `--device cuda` without CUDA
+  (tests/test_torch_parallel.py runs `--num_devices 2`).
 - Each host tool's subcommand runs its tool (tests/test_torch_tools.py
   holds their files against the JAX tools'; tests/test_torch_export.py
   runs `export` and `eval --input_type module`).
@@ -201,15 +202,19 @@ def test_convert_writes_the_port_state_dict(tmp_path):
         assert all(torch.equal(loaded[k], want[k]) for k in want)
 
 
-@pytest.mark.parametrize("argv,item", [
-    (["eval", "--num_devices", "2"], "item 10"),
-    (["train", "--num_devices", "2"], "item 10"),
+@pytest.mark.parametrize("argv,message", [
+    (["eval", "--batch_size", "3", "--num_devices", "2"],
+     "batch_size 3 must be a multiple of --num_devices 2"),
+    (["train", "--batch_size", "3", "--num_devices", "2"],
+     "batch_size 3 must be divisible by 2 devices"),
 ])
-def test_refused_options_raise(argv, item, tmp_path):
+def test_refused_options_raise(argv, message, tmp_path):
+    """A global batch the ranks do not divide, with the JAX command line's
+    messages (its eval's and its training driver's)."""
     required = {"eval": ["--input_folder", str(tmp_path), "--checkpoint_path", CKPT],
                 "train": ["--input_folder", str(tmp_path), "--train_list", "x",
                           "--test_list", "x"]}
-    with pytest.raises(SystemExit, match=item):
+    with pytest.raises(ValueError, match=message):
         cli.main(argv + required.get(argv[0], []) + ["--device", "cpu"] * (argv[0] in required))
     assert not os.listdir(tmp_path)  # refused before any work
 
