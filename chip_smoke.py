@@ -150,6 +150,28 @@ result line:
    the card count before any work on a one-card box, or run through NCCL
    with two cards (the eval maps held to (c)'s 1-rank maps). Prints the
    phase's seconds.
+15. measurement programs, each figure printed beside the card's name and
+   power limit: (a) `python -m patchmatchnet_torch.bench --verbose` in
+   its own process (BENCH_TIMEOUT): its stderr lines and its JSON record,
+   refused unless it has `value`, `tanks_1056x1920_n7_mpix_s` and
+   `train_samples_per_s`, every number positive and no key ending in
+   `_error` or `_skipped`, and unless it launched K1, K6, K2, K3, K4 and
+   K5; (b) the same with `--f32 --no-tanks-metric --no-train-metric`, and
+   `--train`; (c) K1, K2, K3 and K6 against their plain versions (`hold`)
+   at the Tanks and Temples stage shapes (1056x1920: 132x240, 264x480,
+   528x960) with 1 + 6 views, bf16, and at ETH3D's stage 1 (896x1344 and
+   the portrait 1344x896), K6 against the per-view route to the bit;
+   event, device, plain and bound ms per launch, and the hand kernels'
+   device ms per Tanks forward; (d) `dev.bench_dataset_configs` for ETH3D
+   (portrait and landscape views mixed) and Tanks, DATASET_ITERS
+   iterations: per-shape end-to-end, device-resident and first-call
+   times, finite maps, launches K1 6 / K6 4 / K2 5 / K3 3 per forward;
+   (e) `dev.bf16_accuracy` on both fixtures, f32 at the golden bounds;
+   (f) `dev.bf16_scene_check` at 400x288 N=5 and 1056x1920 N=7, failing
+   unless bf16's median delta to f32 is below f32's median |depth - GT|
+   (the factor printed); (g) one bf16 forward of the bench's inputs at the
+   DTU, Tanks and ETH3D geometries: CUDA-event ms, device-busy ms (a
+   trace of 10) and the device's idle share. Prints the phase's seconds.
 
 The last line is {"ok": true, "device": {...}}; the line before it holds
 the per-kernel JSON summary.
@@ -282,13 +304,28 @@ BACKWARD_KERNELS = ("warp_group_corr_backward", "neighbor_group_corr_backward")
 # random inputs. K2: that shift of the sampled x_norm (random per pixel, so
 # also O(1) jumps) enters the sigmoid depth weight multiplied by
 # 2 / interval, so its max bound scales with 1 / interval: 2e-5 / interval
-# is 8e-4, 1.6e-3 and 4e-3 at stages 3, 2 and 1.
+# is 8e-4, 1.6e-3 and 4e-3 at stages 3, 2 and 1. It scales with that ulp
+# too, which doubles where a side of the map passes 1024 px (ETH3D's stage
+# 1, 896x1344, phase 15): `size`, the larger side, sets the factor, 1 up to
+# 1024 px, so every map of phases 3 and 7 keeps its bound.
 
 
-def parity_tol(name: str, interval: float):
-    """(max abs, mean abs) bound of kernel vs plain version on O(1) outputs."""
+# the measurement programs (phase 15): each bench process's time limit; the
+# Tanks and Temples evaluation geometry (1 + 6 views) and ETH3D's landscape
+# one; the estimator runs' iterations; the plane scene checks (H, W, views)
+BENCH_TIMEOUT = 300
+TANKS_H, TANKS_W, ETH3D_H, ETH3D_W = 1056, 1920, 1792, 2688
+TANKS_RIG_BASELINES = DTU_RIG_BASELINES + (-1.05,)
+DATASET_ITERS = 2
+SCENE_CHECKS = ((288, 400, 5), (1056, 1920, 7))
+
+
+def parity_tol(name: str, interval: float, size: int = 0):
+    """(max abs, mean abs) bound of kernel vs plain version on O(1) outputs;
+    `size` is the larger side of the map (0: at most 1024 px)."""
     if name == "eval_grid_score":
-        return 2e-5 / interval, 2e-5
+        ulps = max(1.0, math.ulp(float(size - 1)) / math.ulp(1023.0))
+        return 2e-5 / interval * ulps, 2e-5
     return 2e-3, 2e-5
 
 
@@ -367,12 +404,12 @@ def add_time(entry, name, args, out, launches, ms, plain_ms, dev_ms):
     entry["ops"] += work_ops * launches
 
 
-def hold(name: str, label: str, got, want, interval: float) -> float:
+def hold(name: str, label: str, got, want, interval: float, size: int = 0) -> float:
     """Print a kernel's error against its plain version and fail outside
     `parity_tol`; returns the max abs error."""
     err = (got - want).abs()
     max_abs, mean_abs = err.max().item(), err.mean().item()
-    tol_max, tol_mean = parity_tol(name, interval)
+    tol_max, tol_mean = parity_tol(name, interval, size)
     print(f"{name} {label}: max_abs {max_abs:.3e} mean_abs {mean_abs:.3e}", flush=True)
     if not (max_abs <= tol_max and mean_abs <= tol_mean):
         fail(f"{name} {label} exceeds max {tol_max} / mean {tol_mean}")
@@ -1563,26 +1600,40 @@ def reconstruction_path(device, state_dict, scene, smi):
             fail(f"ref view {ref}: card and CPU fusion disagree")
 
 
+def run_module(label: str, module: str, argv, timeout: int):
+    """Run `python -m <module> <argv>` from the checkout, killed at
+    `timeout` s. Returns (the completed process, seconds); fails on a
+    non-zero exit or a timeout."""
+    start = time.perf_counter()
+    try:
+        proc = subprocess.run([sys.executable, "-m", module, *argv], cwd=REPO,
+                              capture_output=True, text=True, timeout=timeout)
+    except subprocess.TimeoutExpired:
+        fail(f"{label}: no result within {timeout} s")
+    seconds = time.perf_counter() - start
+    if proc.returncode != 0:
+        print("\n".join((proc.stdout + proc.stderr).splitlines()[-30:]), flush=True)
+        fail(f"{label} exited with {proc.returncode}")
+    return proc, seconds
+
+
+def printed_launches(text: str) -> dict:
+    """The hand-kernel launches a process printed ("kernel launches: {...}")."""
+    import ast
+
+    counts = {}
+    for line in text.splitlines():
+        if line.startswith("kernel launches: "):
+            counts = ast.literal_eval(line[len("kernel launches: "):])
+    return counts
+
+
 def run_cli(label: str, argv, timeout: int):
     """Run `python -m patchmatchnet_torch <argv>` from the checkout, killed
     at `timeout` s. Returns (stdout, the kernel launches it printed,
     seconds); fails on a non-zero exit or a timeout."""
-    import ast
-
-    start = time.perf_counter()
-    try:
-        proc = subprocess.run([sys.executable, "-m", "patchmatchnet_torch", *argv], cwd=REPO,
-                              capture_output=True, text=True, timeout=timeout)
-    except subprocess.TimeoutExpired:
-        fail(f"CLI {label}: no result within {timeout} s")
-    seconds = time.perf_counter() - start
-    if proc.returncode != 0:
-        print("\n".join((proc.stdout + proc.stderr).splitlines()[-30:]), flush=True)
-        fail(f"CLI {label} exited with {proc.returncode}")
-    counts = {}
-    for line in proc.stdout.splitlines():
-        if line.startswith("kernel launches: "):
-            counts = ast.literal_eval(line[len("kernel launches: "):])
+    proc, seconds = run_module(f"CLI {label}", "patchmatchnet_torch", argv, timeout)
+    counts = printed_launches(proc.stdout)
     print(f"CLI {label}: {seconds:.2f} s in all (process start, model, kernels' library load "
           f"included); kernel launches {counts}", flush=True)
     return proc.stdout, counts, seconds
@@ -2188,6 +2239,265 @@ def data_parallel_path(device, scratch, smi) -> None:
               f"1 rank {worst}", flush=True)
     print(f"data parallel phase: {time.perf_counter() - started:.1f} s", flush=True)
 
+def bench_run(label: str, argv, smi: str) -> dict:
+    """Phase 15 (a), (b): `python -m patchmatchnet_torch.bench <argv>` in
+    its own process; prints its stderr lines and its JSON record beside the
+    card, and fails unless every number of the record is positive and no
+    key ends in `_error` or `_skipped` (the bench records a failed side
+    section so, which would hide a failed kernel). Returns the record with
+    the launches it printed under "launches"."""
+    proc, seconds = run_module(f"bench {label}", "patchmatchnet_torch.bench",
+                               ["--verbose", *argv], BENCH_TIMEOUT)
+    for line in proc.stderr.splitlines():
+        print(f"  {line}", flush=True)
+    lines = proc.stdout.strip().splitlines()
+    try:
+        record = json.loads(lines[-1])
+    except (IndexError, json.JSONDecodeError):
+        fail(f"bench {label}: no JSON line in {proc.stdout[-500:]!r}")
+    print(f"bench {label} ({seconds:.1f} s in all; {smi}): {json.dumps(record)}", flush=True)
+    bad = [k for k in record if k.endswith(("_error", "_skipped"))]
+    if bad:
+        fail(f"bench {label}: {', '.join(f'{k} = {record[k]!r}' for k in bad)}")
+    numbers = {k: v for k, v in record.items() if isinstance(v, (int, float))}
+    if not numbers or not all(math.isfinite(v) and v > 0 for v in numbers.values()):
+        fail(f"bench {label}: numbers not all positive: {numbers}")
+    record["launches"] = printed_launches(proc.stderr)
+    return record
+
+
+def require_launched(label: str, counts, names) -> None:
+    missing = [n for n in names if not counts.get(n)]
+    if missing:
+        fail(f"{label}: no launch of {missing} (launches {counts})")
+
+
+def tanks_kernel_parity(device, smi) -> None:
+    """Phase 15 (c): K1, K2, K3 and K6 against their plain versions at the
+    Tanks and Temples geometry's stage shapes (1056x1920: 132x240,
+    264x480, 528x960) with 1 + 6 views and bf16 payloads, at phase 3's
+    tolerances (`hold`), K6 against the per-view route to the bit; then at
+    ETH3D's stage 1 (1792x2688: 896x1344 and the portrait 1344x896), the
+    largest shapes the measurement programs give the kernels. Prints each
+    case's event ms, device ms per launch, plain ms and bound, and the
+    hand kernels' device ms and bound per Tanks forward."""
+    import torch
+
+    from patchmatchnet_torch import ops
+    from patchmatchnet_torch.models.patchmatch import (
+        STAGE_CONFIG,
+        build_offset_grid,
+        evaluation_offsets,
+    )
+    from patchmatchnet_torch.ops.warp import warp_proj_coeffs
+    from patchmatchnet_torch.utils.trace import device_ms, fmt_ms
+
+    gen = torch.Generator(device=device).manual_seed(15)
+    views = len(TANKS_RIG_BASELINES) - 1
+    per_forward = {name: {"launches": 0, "device_ms": 0.0, "bound_ms": 0.0}
+                   for name in INFERENCE_KERNELS if name != "coord_group_corr"}
+    route_diff = 0.0
+
+    def case(name, label, args, got, want, interval, launches):
+        hold(name, f"{label} bf16", got, want, interval, max(h, w))
+        fn = {"warp_group_corr": ops.warp_group_corr,
+              "warp_group_corr_views": ops.warp_group_corr_views,
+              "eval_grid_score": ops.eval_grid_score,
+              "neighbor_group_corr": ops.neighbor_group_corr}[name]
+        plain = getattr(ops, f"{name}_reference")
+        ms, plain_ms = time_ms(lambda: fn(*args), reps=10), time_ms(lambda: plain(*args), reps=5)
+        dev = device_ms(lambda: fn(*args))
+        bound_ms, by = bound(*kernel_work(name, args, got))
+        print(f"  {name} {label}: kernel {ms:.4f} ms, device {fmt_ms(dev)} per launch, plain "
+              f"{plain_ms:.4f} ms, bound {bound_ms:.4f} ms ({by})"
+              + (f", x{launches}/forward" if launches else "") + f" [{smi}]", flush=True)
+        if launches:
+            entry = per_forward[name]
+            entry["launches"] += launches
+            entry["bound_ms"] += bound_ms * launches
+            entry["device_ms"] = (None if dev is None or entry["device_ms"] is None
+                                  else entry["device_ms"] + dev * launches)
+
+    # (stage, C, G, scale, [(D, K1 launches, K2 launches)], [(D, K6 launches)])
+    # per Tanks forward; ETH3D's stage 1 follows, outside the sum
+    stages = [(3, 64, 8, 8, [(64, views, 1), (32, 0, 1)], [(32, 1)], TANKS_H, TANKS_W),
+              (2, 32, 8, 4, [(16, 0, 2)], [(16, 2)], TANKS_H, TANKS_W),
+              (1, 16, 4, 2, [(8, 0, 1)], [(8, 1)], TANKS_H, TANKS_W),
+              (1, 16, 4, 2, [(8, 0, 0)], [(8, 0)], ETH3D_H, ETH3D_W),
+              (1, 16, 4, 2, [(8, 0, 0)], [(8, 0)], ETH3D_W, ETH3D_H)]
+    for stage, c, g, scale, k1_depths, k6_depths, full_h, full_w in stages:
+        h, w = full_h // scale, full_w // scale
+        tanks = (full_h, full_w) == (TANKS_H, TANKS_W)
+        cfg = STAGE_CONFIG[stage]
+        projs = rig_cameras(h, w, 1.1 * max(full_h, full_w) / scale,
+                            TANKS_RIG_BASELINES).to(device)
+        mats = warp_proj_coeffs(projs[:, 1:], projs[:, :1]).contiguous()  # [1, 6, 12]
+        offset = torch.randn((1, h, w, 18), generator=gen, device=device) * 2.0
+        grid = build_offset_grid(offset, evaluation_offsets(cfg.propagation_range), h, w)
+        feats = torch.randn((1, 1 + views, h, w, c), generator=gen, device=device)
+        ref, stack = feats[:, 0].bfloat16(), feats[:, 1:].bfloat16().contiguous()
+        del feats
+        vw = torch.rand((1, views, h, w), generator=gen, device=device)
+        fw = torch.rand((1, 9, h, w), generator=gen, device=device) * 0.9 + 0.1
+        shape = f"stage{stage} {h}x{w} ({'Tanks' if tanks else 'ETH3D'} {full_w}x{full_h})"
+        for d, k1_launches, k2_launches in k1_depths:
+            depth = 4.8 + 3.0 * torch.rand((1, d, h, w), generator=gen, device=device)
+            depth[:, -1, :4] = -1.0  # behind the source camera: pz <= 1e-3
+            if k1_launches or not tanks:
+                for v in range(views):  # every source of the rig, timed on the first
+                    args = (stack[:, v].contiguous(), mats[:, v].contiguous(), depth, ref, g)
+                    label = f"{shape} C{c} G{g} D{d} source {v + 1} of {views}"
+                    if v:
+                        hold("warp_group_corr", f"{label} bf16", ops.warp_group_corr(*args),
+                             ops.warp_group_corr_reference(*args), cfg.interval_scale)
+                    else:
+                        case("warp_group_corr", label, args, ops.warp_group_corr(*args),
+                             ops.warp_group_corr_reference(*args), cfg.interval_scale,
+                             k1_launches)
+            x_norm = torch.rand((1, h, w, d), generator=gen, device=device)
+            cost = torch.randn((1, h, w, d), generator=gen, device=device).bfloat16()
+            args = (x_norm, cost, grid, fw, cfg.interval_scale)
+            case("eval_grid_score", f"{shape} D{d} cost", args, ops.eval_grid_score(*args),
+                 ops.eval_grid_score_reference(*args), cfg.interval_scale, k2_launches)
+        for d, launches in k6_depths:
+            depth = 4.8 + 3.0 * torch.rand((1, d, h, w), generator=gen, device=device)
+            depth[:, -1, :4] = -1.0
+            args = (stack, mats, depth, ref, vw, g)
+            got = ops.warp_group_corr_views(*args)
+            diff = (got - per_view_route(*args)).abs().max().item()
+            route_diff = max(route_diff, diff)
+            case("warp_group_corr_views", f"{shape} C{c} G{g} D{d} V{views} (max |K6 - "
+                 f"per-view route| {diff:.3e})", args, got,
+                 ops.warp_group_corr_views_reference(*args), cfg.interval_scale, launches)
+        args = (ref, grid, g)
+        case("neighbor_group_corr", f"{shape} C{c} G{g} K9", args,
+             ops.neighbor_group_corr(*args), ops.neighbor_group_corr_reference(*args),
+             cfg.interval_scale, 1 if tanks else 0)
+        del stack, ref, args, got
+    total = None if any(e["device_ms"] is None for e in per_forward.values()) else sum(
+        e["device_ms"] for e in per_forward.values())
+    print(f"hand kernels per Tanks forward ({TANKS_W}x{TANKS_H}, 1 + {views} views, bf16; "
+          f"{smi}): " + "; ".join(
+              f"{name} x{e['launches']} device {fmt_ms(e['device_ms'])}, bound "
+              f"{e['bound_ms']:.4f} ms" for name, e in per_forward.items())
+          + f"; all {fmt_ms(total)}", flush=True)
+    if route_diff != 0.0:
+        fail(f"K6 at V = {views} differs from the per-view route by {route_diff:.3e}")
+
+
+def device_busy_per_forward(device, smi) -> None:
+    """Phase 15 (g): the bf16 forward of the bench's inputs at the DTU,
+    Tanks and ETH3D geometries: its device-busy ms (`utils.trace.device_ms`,
+    a trace of 10 forwards) beside its CUDA-event ms (median of 10 single
+    forwards, the host's launches included), and the device's idle share,
+    1 - busy / event ms."""
+    import torch
+
+    from patchmatchnet_torch.bench import build_inputs, forward, load_model
+    from patchmatchnet_torch.utils.trace import device_ms, fmt_ms
+
+    model = load_model(True, device)
+    for label, (h, w, views) in (("DTU", (864, 1152, 5)), ("Tanks", (TANKS_H, TANKS_W, 7)),
+                                 ("ETH3D", (ETH3D_H, ETH3D_W, 7))):
+        arrays = build_inputs(1, views, h, w)
+        inputs = [torch.from_numpy(a).to(device) for a in arrays[:5]]
+        noise = torch.from_numpy(arrays[5]).to(device)
+        ms = time_ms(lambda: forward(model, inputs, noise), reps=10)
+        busy = device_ms(lambda: forward(model, inputs, noise))
+        idle = "not measured" if busy is None else f"{1.0 - busy / ms:.3f}"
+        print(f"  bf16 forward at {label} {w}x{h} N={views}: {ms:.2f} ms by events, device busy "
+              f"{fmt_ms(busy)}, idle share {idle} [{smi}]", flush=True)
+        del inputs, noise
+
+
+def measurement_programs(device, scratch, smi) -> None:
+    """Phase 15: the port's measurement programs on the card. (a) the
+    bench, `python -m patchmatchnet_torch.bench --verbose` (bf16 DTU
+    1152x864 N=5, Tanks 1056x1920 N=7, the bf16 train step); (b) the bench
+    in f32 alone and `--train`; (c) K1, K2, K3 and K6 against their plain
+    versions at the Tanks stage shapes with V = 6 (and ETH3D's stage 1),
+    K6 against the per-view route to the bit; (d) `dev.bench_dataset_configs`
+    for ETH3D (portrait and landscape views mixed) and Tanks, 2 iterations;
+    (e) `dev.bf16_accuracy` on both fixtures, f32 at the golden bounds; (f)
+    `dev.bf16_scene_check` at 400x288 N=5 and 1056x1920 N=7, bf16 against
+    f32 below f32's own median |depth - GT|; (g) device-busy ms and the
+    idle share of one bf16 forward at the DTU, Tanks and ETH3D
+    geometries."""
+    import numpy as np
+    import torch
+
+    from patchmatchnet_torch.dev import bench_dataset_configs, bf16_accuracy, bf16_scene_check
+    from patchmatchnet_torch.ops import cuda_build
+
+    started = time.perf_counter()
+    torch.cuda.empty_cache()
+    forward_kernels = ("warp_group_corr", "warp_group_corr_views", "eval_grid_score",
+                       "neighbor_group_corr")
+    train_kernels = ("warp_group_corr", "warp_group_corr_backward", "neighbor_group_corr",
+                     "neighbor_group_corr_backward")
+    record = bench_run("bf16 (DTU, Tanks, train)", [], smi)
+    for key in ("value", "tanks_1056x1920_n7_mpix_s", "train_samples_per_s"):
+        if key not in record:
+            fail(f"bench: no {key} in {record}")
+    require_launched("bench bf16", record["launches"], forward_kernels + train_kernels)
+    record = bench_run("f32 (DTU alone)", ["--f32", "--no-tanks-metric", "--no-train-metric"], smi)
+    require_launched("bench f32", record["launches"], forward_kernels)
+    record = bench_run("--train (bf16 trainer)", ["--train"], smi)
+    require_launched("bench --train", record["launches"], train_kernels)
+
+    tanks_kernel_parity(device, smi)
+
+    for name in ("eth3d", "tanks"):
+        num_views, shapes, bucket = bench_dataset_configs.CONFIGS[name]
+        cuda_build.reset_launch_counts()
+        res = bench_dataset_configs.run_config(name, iters=DATASET_ITERS, device=str(device))
+        counts = cuda_build.launch_counts()
+        for s, (depth, conf) in zip(res["per_shape"], res["maps"]):
+            h, w = s["shape"]
+            print(f"  {name} {h}x{w} N={num_views} (bucket {bucket}): e2e "
+                  f"{s['ms_per_map_e2e']:.2f} ms/map, device-resident "
+                  f"{s['ms_per_map_device']:.2f} ms/map = {s['mpix_s_device']:.3f} MPix/s, "
+                  f"first call {s['first_call_s']:.2f} s; depth {depth.min():.1f}-"
+                  f"{depth.max():.1f}, confidence median {np.median(conf):.3f} [{smi}]",
+                  flush=True)
+            if depth.shape != (h, w) or not (np.isfinite(depth).all() and np.isfinite(conf).all()):
+                fail(f"bench_dataset_configs {name} {h}x{w}: maps {depth.shape}, not finite")
+        forwards = len(shapes) * 2 * (1 + DATASET_ITERS)
+        print(f"  {name}: {res['mpix_s_device']:.3f} MPix/s device-resident over its shapes; "
+              f"padded shapes {res['padded_shapes']}; launches {counts} over {forwards} "
+              f"forwards", flush=True)
+        want = {k: forwards * n for k, n in forward_launches(num_views - 1, 5).items()}
+        if counts != want:
+            fail(f"bench_dataset_configs {name} launched {counts}, expected {want}")
+
+    for fixture in bf16_accuracy.FIXTURES:
+        report = bf16_accuracy.run(fixture, device=str(device))
+        worst = max(row["f32_vs_torch_max"] for row in report["stages"].values())
+        worst_mean = max(row["f32_vs_torch_mean"] for row in report["stages"].values())
+        conf = report["confidence"]["f32"]
+        print(f"  {fixture} f32 on the card: stage max {worst:.3e} mean {worst_mean:.3e} of "
+              f"the range, depth max {report['depth']['f32_vs_torch_max']:.3e}, confidence "
+              f"share > 5e-3 {conf['share_above_5e-3']:.2e} median {conf['median']:.2e}; bf16 "
+              f"vs f32 depth mean {report['depth']['bf16_vs_f32_mean']:.3e} [{smi}]",
+              flush=True)
+        if (worst >= 2e-3 or worst_mean >= 2e-4 or report["depth"]["f32_vs_torch_max"] >= 2e-3
+                or conf["share_above_5e-3"] >= 1e-3 or conf["median"] >= 1e-4):
+            fail(f"bf16_accuracy {fixture}: f32 outside the golden bounds")
+
+    for h, w, views in SCENE_CHECKS:
+        report = bf16_scene_check.run(h, w, views, device=str(device), scratch=scratch)
+        gt_err, delta = report["f32"]["median"], report["bf16_vs_f32"]["median"]
+        factor = gt_err / delta if delta > 0 else math.inf
+        print(f"  bf16_scene_check {w}x{h} N={views}: f32 median |depth - GT| {gt_err:.4e}, "
+              f"bf16 vs f32 median {delta:.4e}: {factor:.1f}x below [{smi}]", flush=True)
+        if not delta < gt_err:
+            fail(f"bf16_scene_check {w}x{h}: bf16 vs f32 {delta:.4e} not below the f32 "
+                 f"|depth - GT| {gt_err:.4e}")
+
+    device_busy_per_forward(device, smi)
+    print(f"measurement programs phase: {time.perf_counter() - started:.1f} s", flush=True)
+
+
 def read_training_run(out: str, steps: int):
     """The train records of a CLI training run (metrics.jsonl), after
     checking its checkpoint set, a finite loss logged for each of its
@@ -2318,6 +2628,15 @@ def main() -> int:
     scratch = tempfile.mkdtemp(prefix="smoke_dp_", dir=os.path.join(REPO, "build"))
     try:
         data_parallel_path(device, scratch, smi)
+    finally:
+        shutil.rmtree(scratch, ignore_errors=True)
+
+    phase("measurement programs: python -m patchmatchnet_torch.bench (DTU, Tanks, train; f32; "
+          "--train), kernels at the Tanks shapes, dev.bench_dataset_configs (ETH3D, Tanks), "
+          "dev.bf16_accuracy, dev.bf16_scene_check")
+    scratch = tempfile.mkdtemp(prefix="smoke_measure_", dir=os.path.join(REPO, "build"))
+    try:
+        measurement_programs(device, scratch, smi)
     finally:
         shutil.rmtree(scratch, ignore_errors=True)
 
