@@ -172,6 +172,32 @@ result line:
    (the factor printed); (g) one bf16 forward of the bench's inputs at the
    DTU, Tanks and ETH3D geometries: CUDA-event ms, device-busy ms (a
    trace of 10) and the device's idle share. Prints the phase's seconds.
+16. training precision and the remaining CLI paths: (a) `python -m
+   patchmatchnet_torch.dev.bf16_train_compare --steps 300 --log-every 1`
+   in its own process (COMPARE_TIMEOUT): f32 then bf16 from scratch at
+   640x512, B=2, the tool's `--num-views 5` (sources, as the JAX tool's:
+   1 + 5 views a sample), the full model; its JSON record, the loss at a
+   few steps, each precision's step walls (synced) and launches beside the
+   card; fails unless every loss and depth error is finite, the launches
+   are 600 train steps' (K1 25 / K4 25 / K3 3 / K5 3 each) and the gates
+   set before its first card run hold (COMPARE_*: each precision's median
+   loss of its last 10 steps at most 0.1 x its first 10's; bf16's final
+   stage-0 depth error at most 1.5 x f32's + 1e-3; median relative loss
+   divergence at most 0.25); then a trace of 2 steps of each precision
+   from scratch (launches, device busy, idle share, device ms by kind);
+   (b) `eval` at its default `--num_views 20` on a 21-view 1152x864 scene
+   (texture CLI_EVAL_TEXTURE; each view lists the 20 others): launches
+   per map K1 20 / K6 4 / K2 5 / K3 3, every map finite at 1152x864, ms per
+   map and per fused view; view 0 against DepthEstimator in this process
+   at phase 12 (a)'s bound; warm in-process ms per map; K6 at V = 20 (two
+   chunks of views) at the three stage shapes against the per-view route
+   to the bit and against its plain version at phase 3's bounds, its
+   device ms beside the route's and its bound; (c) `train --dataset
+   dtu_legacy` on a raw DTU tree of the plane (640x512 `Rectified` images
+   under 7 lights, 1600x1200 `Depths_raw` maps, one reference with 4
+   sources) at B = 2, `--num_views 5`, from the released weights: 3 finite
+   steps and a validation, ms per step, launches of 3 steps and 4
+   validation forwards. Prints the phase's seconds.
 
 The last line is {"ok": true, "device": {...}}; the line before it holds
 the per-kernel JSON summary.
@@ -318,6 +344,25 @@ TANKS_H, TANKS_W, ETH3D_H, ETH3D_W = 1056, 1920, 1792, 2688
 TANKS_RIG_BASELINES = DTU_RIG_BASELINES + (-1.05,)
 DATASET_ITERS = 2
 SCENE_CHECKS = ((288, 400, 5), (1056, 1920, 7))
+# training precision and the remaining CLI paths (phase 16): (a) the
+# f32-against-bf16 comparison at its defaults (640x512, N=5, B=2, from
+# scratch) for 300 steps, with its gates, set before its first run on the
+# card: each precision's median loss over its last 10 steps at most
+# COMPARE_DROP x its median over its first 10; bf16's final stage-0 depth
+# error at most COMPARE_ERR_FACTOR x f32's + COMPARE_ERR_SLACK; the median
+# relative loss divergence at most COMPARE_DIV_MEDIAN; (b) the CLI's eval at
+# its default --num_views 20 on a 21-view scene at the main path's size
+# (each view's pair.txt entry lists the 20 others, so K6 stages two chunks
+# of views: 16 and 4); (c) the raw DTU layout's training at 640x512, 1 + 4
+# views (`--num_views 5` counts the reference), B = 2: one reference of 5
+# views under 7 lights, 7 samples, 3 steps
+COMPARE_STEPS, COMPARE_TIMEOUT = 300, 600
+# the tool's --num-views default, which counts source views as MVSDataset
+# does (as in the JAX tool): 1 + 5 views a sample
+COMPARE_SOURCES = 5
+COMPARE_DROP, COMPARE_ERR_FACTOR, COMPARE_ERR_SLACK, COMPARE_DIV_MEDIAN = 0.1, 1.5, 1e-3, 0.25
+MANY_SOURCES = 20
+RAW_DTU_VIEWS, RAW_DTU_LIGHTS, RAW_DTU_STEPS = 5, 7, 3
 
 
 def parity_tol(name: str, interval: float, size: int = 0):
@@ -421,8 +466,11 @@ def fail(msg: str) -> None:
     sys.exit(1)
 
 
+_START = time.perf_counter()
+
+
 def phase(name: str) -> None:
-    print(f"== {name}", flush=True)
+    print(f"== {name} (at {time.perf_counter() - _START:.1f} s)", flush=True)
 
 
 def time_ms(fn, reps: int = 20, warmup: int = 3) -> float:
@@ -2498,6 +2546,317 @@ def measurement_programs(device, scratch, smi) -> None:
     print(f"measurement programs phase: {time.perf_counter() - started:.1f} s", flush=True)
 
 
+def write_raw_dtu(root: str, views: int, lights: int, texture: float) -> str:
+    """The raw DTU training layout (`Rectified/`, `Depths_raw/`,
+    `Cameras_1/`, as tests/test_dtu_legacy.py writes it) of the textured
+    plane: `lights` 640x512 PNG images per view (the plane at light-scaled
+    brightness), cam files at 1/4 resolution, 1600x1200 depth maps of the
+    plane and visual masks (an interior rectangle); pair.txt lists the
+    middle view with the others as sources. Returns the scan list."""
+    import numpy as np
+
+    from patchmatchnet_torch.data import (
+        PLANE_Z,
+        save_cam_file,
+        save_image,
+        save_pair_file,
+        save_pfm,
+    )
+    from patchmatchnet_torch.data.synthetic import world_texture
+
+    scan = "scan1"
+    for folder in ("Cameras_1/train", f"Rectified/{scan}_train", f"Depths_raw/{scan}"):
+        os.makedirs(os.path.join(root, folder), exist_ok=True)
+    f = 1.1 * max(TRAIN_H, TRAIN_W)
+    k = np.array([[f, 0, TRAIN_W / 2.0], [0, f, TRAIN_H / 2.0], [0, 0, 1]], np.float32)
+    k_quarter = k.copy()
+    k_quarter[:2] /= 4.0
+    uu, vv = np.meshgrid(np.arange(TRAIN_W), np.arange(TRAIN_H))
+    visual = np.zeros((1200, 1600), np.float32)
+    visual[200:1000, 200:1400] = 1.0
+    for v in range(views):
+        e = np.eye(4, dtype=np.float32)
+        e[0, 3] = 0.35 * (v - (views - 1) / 2.0)
+        save_cam_file(os.path.join(root, "Cameras_1", "train", f"{v:08d}_cam.txt"), k_quarter,
+                      e, [0.8 * PLANE_Z, 1.3 * PLANE_Z])
+        img = world_texture((uu - k[0, 2]) / k[0, 0] * PLANE_Z - e[0, 3],
+                            (vv - k[1, 2]) / k[1, 1] * PLANE_Z, texture)
+        for light in range(lights):
+            save_image(os.path.join(root, "Rectified", f"{scan}_train",
+                                    f"rect_{v + 1:03d}_{light}_r5000.png"),
+                       img * (0.7 + 0.05 * light))
+        save_pfm(os.path.join(root, "Depths_raw", scan, f"depth_map_{v:04d}.pfm"),
+                 np.full((1200, 1600), PLANE_Z, np.float32))
+        save_image(os.path.join(root, "Depths_raw", scan, f"depth_visual_{v:04d}.png"), visual)
+    mid = views // 2
+    save_pair_file(os.path.join(root, "Cameras_1", "pair.txt"),
+                   [(mid, [(s, 10.0 - abs(s - mid)) for s in sorted(
+                       (s for s in range(views) if s != mid), key=lambda s: abs(s - mid))])])
+    list_file = os.path.join(root, "train.txt")
+    with open(list_file, "w") as fh:
+        fh.write(scan + "\n")
+    return list_file
+
+
+def compare_curves(stderr: str):
+    """The per-step lines of `dev.bf16_train_compare --log-every 1`:
+    {precision: (losses, stage-0 depth errors, step walls in ms)}."""
+    import re
+
+    curves = {"f32": ([], [], []), "bf16": ([], [], [])}
+    pattern = re.compile(r"^\[(f32|bf16)\] step\s+(\d+) loss (\S+) depth-err (\S+) "
+                         r"wall (\S+) ms$")
+    for line in stderr.splitlines():
+        m = pattern.match(line)
+        if m:
+            losses, errs, walls = curves[m.group(1)]
+            if int(m.group(2)) != len(losses):
+                fail(f"bf16_train_compare: {m.group(1)} step {m.group(2)} out of order")
+            losses.append(float(m.group(3)))
+            errs.append(float(m.group(4)))
+            walls.append(float(m.group(5)))
+    return curves
+
+
+def precision_and_cli_paths(device, scratch, smi) -> None:
+    """Phase 16: (a) `python -m patchmatchnet_torch.dev.bf16_train_compare`
+    at its defaults for COMPARE_STEPS steps in its own process: every loss
+    finite, the gates (COMPARE_*), its launches, step walls; then a trace of
+    2 train steps of each precision from scratch in this process; (b) the
+    CLI's eval at its default --num_views 20 on a 21-view 1152x864 scene:
+    launches, finite maps, view 0 against DepthEstimator in this process at
+    phase 12 (a)'s bound, warm in-process ms per map; K6 at V = 20 at the
+    three stage shapes against the per-view route to the bit and its plain
+    version at phase 3's bounds; (c) `train --dataset dtu_legacy` at 640x512,
+    B = 2, 1 + 4 views, 3 steps from the released weights."""
+    import re
+
+    import numpy as np
+    import torch
+    from PIL import Image
+
+    from patchmatchnet_torch import ops
+    from patchmatchnet_torch.bench import seeded_model
+    from patchmatchnet_torch.config import Config
+    from patchmatchnet_torch.data import (
+        PLANE_Z,
+        BatchLoader,
+        MVSDataset,
+        make_synthetic_scene,
+        read_pfm,
+        read_ply,
+    )
+    from patchmatchnet_torch.dev import bf16_train_compare
+    from patchmatchnet_torch.dev.profile_coord import rig_mats
+    from patchmatchnet_torch.infer import DepthEstimator
+    from patchmatchnet_torch.models.patchmatch import STAGE_CONFIG
+    from patchmatchnet_torch.train import batch_to_device, make_optimizer, train_step
+    from patchmatchnet_torch.train.driver import build_model, load_any_checkpoint
+    from patchmatchnet_torch.utils.trace import device_ms, fmt_ms
+
+    started = time.perf_counter()
+    torch.cuda.empty_cache()
+
+    # (a) f32 against bf16, from scratch, at the tool's defaults
+    proc, seconds = run_module("bf16_train_compare", "patchmatchnet_torch.dev.bf16_train_compare",
+                               ["--steps", str(COMPARE_STEPS), "--log-every", "1"],
+                               COMPARE_TIMEOUT)
+    try:
+        record = json.loads(proc.stdout.strip().splitlines()[-1])
+    except (IndexError, json.JSONDecodeError):
+        fail(f"bf16_train_compare: no JSON line in {proc.stdout[-500:]!r}")
+    curves = compare_curves(proc.stderr)
+    for line in proc.stderr.splitlines():
+        if not line.startswith(("[f32] step", "[bf16] step")):
+            print(f"  {line}", flush=True)
+    print(f"bf16_train_compare, {TRAIN_W}x{TRAIN_H}, 1 + {COMPARE_SOURCES} views, B={TRAIN_BATCH}, "
+          f"{COMPARE_STEPS} steps from scratch ({seconds:.1f} s in all; {smi}): "
+          f"{json.dumps(record)}", flush=True)
+    gates = []
+    for name, (losses, errs, walls) in curves.items():
+        if len(losses) != COMPARE_STEPS or not all(map(math.isfinite, losses + errs)):
+            fail(f"bf16_train_compare {name}: {len(losses)} steps logged, finite "
+                 f"{all(map(math.isfinite, losses + errs))}")
+        first, last = statistics.median(losses[:10]), statistics.median(losses[-10:])
+        later = walls[1:]
+        print(f"  {name}: loss at steps 0, 10, 50, 100, 200, {COMPARE_STEPS - 1}: "
+              + " ".join(f"{losses[i]:.4e}" for i in (0, 10, 50, 100, 200, COMPARE_STEPS - 1))
+              + f"; median of the first / last 10 {first:.4e} / {last:.4e} (ratio "
+              f"{last / first:.4e}); stage-0 depth error at the end {errs[-1]:.4e}; step wall "
+              f"(synced) median {statistics.median(later):.2f} ms, p10 "
+              f"{float(np.percentile(later, 10)):.2f}, p90 {float(np.percentile(later, 90)):.2f}, "
+              f"first {walls[0]:.1f} [{smi}]", flush=True)
+        gates.append((f"{name} last-10 median loss <= {COMPARE_DROP} x first-10",
+                      last <= COMPARE_DROP * first))
+    for key, want in (("f32_final_loss", curves["f32"][0][-1]),
+                      ("bf16_final_loss", curves["bf16"][0][-1]),
+                      ("f32_final_depth_err", curves["f32"][1][-1]),
+                      ("bf16_final_depth_err", curves["bf16"][1][-1])):
+        if not math.isclose(record[key], want, rel_tol=1e-5):
+            fail(f"bf16_train_compare: {key} {record[key]} against its last logged {want}")
+    gates.append((f"bf16 final depth error <= {COMPARE_ERR_FACTOR} x f32's + {COMPARE_ERR_SLACK}",
+                  record["bf16_final_depth_err"]
+                  <= COMPARE_ERR_FACTOR * record["f32_final_depth_err"] + COMPARE_ERR_SLACK))
+    gates.append((f"median relative loss divergence <= {COMPARE_DIV_MEDIAN}",
+                  record["rel_loss_div_median"] <= COMPARE_DIV_MEDIAN))
+    print("  gates: " + "; ".join(f"{label}: {'held' if ok else 'MISSED'}"
+                                  for label, ok in gates), flush=True)
+    counts = printed_launches(proc.stderr)
+    want = {k: 2 * COMPARE_STEPS * n for k, n in step_launches(COMPARE_SOURCES, 5).items()}
+    if counts != want:
+        fail(f"bf16_train_compare launched {counts}, expected {want}")
+    missed = [label for label, ok in gates if not ok]
+    if missed:
+        fail("bf16_train_compare: " + "; ".join(missed))
+
+    # launches and device time per step of each precision, from scratch:
+    # 2 steps traced after 2
+    batch = batch_to_device(bf16_train_compare.build_batch(TRAIN_H, TRAIN_W, TRAIN_BATCH,
+                                                           COMPARE_SOURCES), device)
+    for name, dtype in (("f32", None), ("bf16", torch.bfloat16)):
+        model = seeded_model(dtype).to(device)
+        opt = make_optimizer(model.parameters(), 1e-3)
+        step_i = [0]
+
+        def step():
+            noise = bf16_train_compare.step_noise(batch, step_i[0])
+            step_i[0] += 1
+            return train_step(model, opt, batch, 1e-3, noise)[0]["loss"]
+
+        for _ in range(2):
+            float(step())
+        print(f"  {name} trainer:", flush=True)
+        trace_steps(step, 2, os.path.join(scratch, f"compare_{name}_trace.json"))
+        del model, opt
+    del batch
+    torch.cuda.empty_cache()
+
+    # (b) the CLI's eval at its default --num_views 20
+    scene = os.path.join(scratch, "many")
+    views = MANY_SOURCES + 1
+    make_synthetic_scene(scene, num_views=views, height=MAIN_H, width=MAIN_W,
+                         texture_scale=CLI_EVAL_TEXTURE)
+    out = os.path.join(scratch, "many_out")
+    stdout, counts, seconds = run_cli(
+        f"eval ({MANY_SOURCES} sources)", ["eval", "--input_folder", scene, "--output_folder",
+                                           out, "--checkpoint_path", CKPT,
+                                           "--image_extension", ".png"], CLI_TIMEOUT)
+    maps = re.search(r"Wrote (\d+) depth/confidence map pairs in ([\d.]+) s \(([\d.]+) ms per "
+                     r"map\); request ms: first ([\d.]+) \(set-up included\), then median ([\d.]+)",
+                     stdout)
+    fused = re.search(r"Fused (\S+) in ([\d.]+) s", stdout)
+    if not maps or not fused or int(maps.group(1)) != views:
+        fail(f"CLI eval ({MANY_SOURCES} sources) printed no map or fusion timing for {views} "
+             "views")
+    expect_launches(f"eval ({MANY_SOURCES} sources)", counts,
+                    [(views, forward_launches(MANY_SOURCES, 5))])
+    errs = []
+    for v in range(views):
+        depth = read_pfm(os.path.join(out, "depth_est", f"{v:08d}.pfm"))[..., 0]
+        conf = read_pfm(os.path.join(out, "confidence", f"{v:08d}.pfm"))[..., 0]
+        for name, m in (("depth", depth), ("confidence", conf)):
+            if m.shape != (MAIN_H, MAIN_W) or not np.isfinite(m).all():
+                fail(f"CLI eval ({MANY_SOURCES} sources) view {v}: {name} map {m.shape}, finite "
+                     f"{np.isfinite(m).all()}")
+        final = np.asarray(Image.open(os.path.join(out, "mask", f"{v:08d}_final.png"))) > 0
+        errs.append((float(np.median(np.abs(depth - PLANE_Z))), float(final.mean())))
+    xyz, _ = read_ply(fused.group(1))
+    z_err = float(np.median(np.abs(xyz[:, 2] - PLANE_Z))) if xyz.shape[0] else float("nan")
+    print(f"CLI eval {MAIN_W}x{MAIN_H}, {views} views, 1 + {MANY_SOURCES} views per map: "
+          f"{float(maps.group(3)):.2f} ms per map ({maps.group(2)} s for {maps.group(1)} maps; "
+          f"requests: the first {maps.group(4)} ms with its set-up, then median "
+          f"{maps.group(5)} ms); fusion {float(fused.group(2)) * 1e3 / views:.2f} ms per fused "
+          f"view ({fused.group(2)} s), {xyz.shape[0]} points, median |z - plane| {z_err:.4f}; "
+          "median |depth - plane| (final-mask share) per view, not gated: "
+          + " ".join(f"{e:.4f} ({m:.2f})" for e, m in errs) + f"; card {smi}", flush=True)
+
+    model = build_model(Config(), inference=True)
+    model.load_state_dict(load_any_checkpoint(CKPT), strict=True)
+    estimator = DepthEstimator(model, device=device)
+    dataset = MVSDataset(scene, MANY_SOURCES, ".png")
+    batch = next(iter(BatchLoader(dataset, 1, num_threads=1)))
+    if batch["images"].shape[1] != views:
+        fail(f"the dataset gives {batch['images'].shape[1]} views a sample, expected {views}")
+    depth = estimator(batch, torch.Generator(device=device).manual_seed(0))[0][0]
+    cli_depth = read_pfm(os.path.join(out, "depth_est", "00000000.pfm"))[..., 0]
+    diff = np.abs(depth - cli_depth)
+    off = float((diff > 1e-3 * (1.3 - 0.8) * PLANE_Z).mean())
+    print(f"CLI view 0 ({MANY_SOURCES} sources) against DepthEstimator in this process: max "
+          f"|diff| {diff.max():.3e}, median {np.median(diff):.3e}, share of pixels off by more "
+          f"than 1e-3 of the depth range {off:.2e}", flush=True)
+    if np.median(diff) != 0.0 or off > 1e-3:
+        fail(f"CLI view 0 ({MANY_SOURCES} sources) differs from DepthEstimator (bounds: median "
+             "0, at most 0.1% of the pixels off by more than 1e-3 of the depth range)")
+    ms = []
+    for i, batch in enumerate(BatchLoader(dataset, 1)):
+        if i == 5:
+            break
+        torch.cuda.synchronize()
+        start = time.perf_counter()
+        estimator(batch, torch.Generator(device=device).manual_seed(0))
+        ms.append((time.perf_counter() - start) * 1e3)
+    print(f"DepthEstimator in this process, 1 + {MANY_SOURCES} views, warm: ms per map "
+          + " ".join(f"{t:.2f}" for t in ms) + f" (median {statistics.median(ms):.2f}) [{smi}]",
+          flush=True)
+    del estimator, model
+    torch.cuda.empty_cache()
+
+    # K6 at V = 20 (two chunks of views) at the main path's stage shapes
+    gen = torch.Generator(device=device).manual_seed(16)
+    route_diff, dev_total = 0.0, 0.0
+    for stage, c, g, scale, d, launches in ((3, 64, 8, 8, 32, 1), (2, 32, 8, 4, 16, 2),
+                                            (1, 16, 4, 2, 8, 1)):
+        h, w = MAIN_H // scale, MAIN_W // scale
+        mats = rig_mats(h, w, scale, MANY_SOURCES).to(device)
+        ref = torch.randn((1, h, w, c), generator=gen, device=device).to(torch.bfloat16)
+        stack = torch.randn((1, MANY_SOURCES, h, w, c), generator=gen,
+                            device=device).to(torch.bfloat16)
+        vw = torch.rand((1, MANY_SOURCES, h, w), generator=gen, device=device)
+        depth = 4.8 + 3.0 * torch.rand((1, d, h, w), generator=gen, device=device)
+        depth[:, -1, :4] = -1.0  # behind the source camera: pz <= 1e-3
+        args = (stack, mats, depth, ref, vw, g)
+        got = ops.warp_group_corr_views(*args)
+        diff = (got - per_view_route(*args)).abs().max().item()
+        route_diff = max(route_diff, diff)
+        label = f"stage{stage} C{c} G{g} D{d} V{MANY_SOURCES} {h}x{w} bf16"
+        hold("warp_group_corr_views", f"{label} (max |K6 - per-view route| {diff:.3e})", got,
+             ops.warp_group_corr_views_reference(*args), STAGE_CONFIG[stage].interval_scale)
+        dev = device_ms(lambda: ops.warp_group_corr_views(*args))
+        route_dev = device_ms(lambda: per_view_route(*args))
+        dev_total = None if dev is None or dev_total is None else dev_total + dev * launches
+        work_ms, by = bound(*kernel_work("warp_group_corr_views", args, got))
+        print(f"  K6 {label}: device {fmt_ms(dev)} (x{launches}/forward), the per-view route "
+              f"{fmt_ms(route_dev)}, bound {work_ms:.4f} ms ({by})", flush=True)
+        del stack, args, got
+    print(f"K6 at V = {MANY_SOURCES}: max |K6 - per-view route| {route_diff:.3e} over the three "
+          f"stage shapes; device ms per forward {fmt_ms(dev_total)} [{smi}]", flush=True)
+    if route_diff != 0.0:
+        fail(f"K6 at V = {MANY_SOURCES} differs from the per-view route")
+    torch.cuda.empty_cache()
+
+    # (c) the raw DTU layout's training at 640x512
+    root = os.path.join(scratch, "raw_dtu")
+    list_file = write_raw_dtu(root, RAW_DTU_VIEWS, RAW_DTU_LIGHTS, 8.0)
+    out = os.path.join(scratch, "raw_dtu_out")
+    _, counts, seconds = run_cli("train (dtu_legacy)", [
+        "train", "--input_folder", root, "--output_folder", out, "--dataset", "dtu_legacy",
+        "--train_list", list_file, "--test_list", list_file, "--num_views", str(RAW_DTU_VIEWS),
+        "--batch_size", str(TRAIN_BATCH), "--epochs", "1", "--checkpoint_path", CKPT,
+        "--summary_freq", "1"], CLI_TIMEOUT)
+    records = read_training_run(out, RAW_DTU_STEPS)
+    val = -(-RAW_DTU_LIGHTS // TRAIN_BATCH)  # validation batches (the last one short)
+    print(f"CLI train --dataset dtu_legacy {TRAIN_W}x{TRAIN_H}, 1 + {RAW_DTU_VIEWS - 1} views, "
+          f"B {TRAIN_BATCH}, {RAW_DTU_STEPS} steps: ms per step "
+          + " ".join(f"{r['step_ms']:.2f}" for r in records) + ", losses "
+          + " ".join(f"{r['loss']:.5f}" for r in records)
+          + f", peak {records[-1].get('peak_mib', float('nan')):.1f} MiB; card {smi}", flush=True)
+    expect_launches("train (dtu_legacy)", counts,
+                    [(RAW_DTU_STEPS, step_launches(RAW_DTU_VIEWS - 1, 5)),
+                     (val, forward_launches(RAW_DTU_VIEWS - 1, 5))])
+    print(f"training precision and CLI paths phase: {time.perf_counter() - started:.1f} s",
+          flush=True)
+
+
 def read_training_run(out: str, steps: int):
     """The train records of a CLI training run (metrics.jsonl), after
     checking its checkpoint set, a finite loss logged for each of its
@@ -2637,6 +2996,16 @@ def main() -> int:
     scratch = tempfile.mkdtemp(prefix="smoke_measure_", dir=os.path.join(REPO, "build"))
     try:
         measurement_programs(device, scratch, smi)
+    finally:
+        shutil.rmtree(scratch, ignore_errors=True)
+
+    phase(f"training precision and the remaining CLI paths: dev.bf16_train_compare "
+          f"({COMPARE_STEPS} steps, {TRAIN_W}x{TRAIN_H}, 1 + {COMPARE_SOURCES} views, "
+          f"B={TRAIN_BATCH}), eval at "
+          f"{MANY_SOURCES} sources, train --dataset dtu_legacy")
+    scratch = tempfile.mkdtemp(prefix="smoke_precision_", dir=os.path.join(REPO, "build"))
+    try:
+        precision_and_cli_paths(device, scratch, smi)
     finally:
         shutil.rmtree(scratch, ignore_errors=True)
 

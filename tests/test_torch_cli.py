@@ -7,6 +7,13 @@
   that `DepthEstimator` + `save_depth_maps` write with the same seed, and
   the `fused.ply` and masks that `filter_and_fuse` writes, byte for byte;
   `fuse --device cpu` over those maps writes the same `fused.ply`.
+- `eval --device cpu` at the default `--num_views 20` on a 21-view scene
+  (view 0 the reference, every other view its source, so K6's plain
+  version takes V = 20, two of the kernel's view chunks on the card)
+  writes the maps of
+  `DepthEstimator` + `save_depth_maps`, byte for byte; the port's f32
+  forward at V = 20 meets the JAX model's (its default per-view path) at
+  the golden bounds, with the same weights and noise.
 - `train --device cpu` for one epoch writes the checkpoint set, a config
   that loads back, a finite loss and a trace; `--dataset dtu_legacy` builds
   its loaders on the raw DTU layout.
@@ -26,11 +33,15 @@ import math
 import os
 import shutil
 
+import jax
+import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
 
 from patchmatchnet_tpu import cli as jax_cli
+from patchmatchnet_tpu.compat import load_variables
+from patchmatchnet_tpu.models import PatchmatchNet as JaxPatchmatchNet
 from patchmatchnet_tpu.config import Config as JaxConfig
 from patchmatchnet_torch import cli
 from patchmatchnet_torch.compat import convert_torch_state_dict
@@ -40,6 +51,7 @@ from patchmatchnet_torch.data import (
     MVSDataset,
     make_synthetic_scene,
     read_ply,
+    save_pair_file,
     save_ply,
 )
 from patchmatchnet_torch.infer import DepthEstimator, FusionConfig, filter_and_fuse, save_depth_maps
@@ -48,6 +60,7 @@ from patchmatchnet_torch.train.driver import load_any_checkpoint
 from tests.test_dtu_legacy import raw_dtu  # noqa: F401  (the fixture)
 from tests.test_tools import _write_synthetic_colmap
 from tests.test_torch_convert import reference_state_dict
+from tests.test_torch_model import _check_against
 from tests.test_torch_tools import _eth3d, _raw_dtu, _scene_with_maps
 
 CKPT = os.path.join(os.path.dirname(__file__), "..", "checkpoints", "params_000007.msgpack")
@@ -150,6 +163,54 @@ def test_eval_and_fuse_match_the_library(scene, tmp_path):
     cli.main(["fuse", "--input_folder", scene, "--output_folder", fused, "--device", "cpu",
               "--image_extension", ".png", *FUSION_ARGS])
     _same_files(fused, ref, masks + ["fused.ply"])
+
+
+@pytest.fixture(scope="module")
+def scene21(tmp_path_factory):
+    """21 views; pair.txt lists view 0 as the one reference, with the 20
+    others as its sources (one map a run keeps the case short)."""
+    root = str(tmp_path_factory.mktemp("cli_scene21"))
+    make_synthetic_scene(root, num_views=21, height=64, width=80, texture_scale=6.0)
+    save_pair_file(os.path.join(root, "pair.txt"), [(0, [(s, 10.0 - s) for s in range(1, 21)])])
+    return root
+
+
+def test_eval_at_the_default_20_sources_matches_the_library(scene21, tmp_path):
+    out = str(tmp_path / "cli")
+    cli.main(["eval", "--input_folder", scene21, "--output_folder", out, "--checkpoint_path",
+              CKPT, "--device", "cpu", "--seed", "3", "--image_extension", ".png",
+              "--output_type", "depth"])
+    assert cli.build_parser("eval").get_default("num_views") == 20
+
+    ref = str(tmp_path / "library")
+    model = PatchmatchNet(compute_dtype=torch.bfloat16)  # the default --precision bf16
+    model.load_state_dict(load_any_checkpoint(CKPT), strict=True)
+    dataset = MVSDataset(scene21, 20, ".png")
+    assert dataset[0]["images"].shape[0] == 21
+    written = save_depth_maps(DepthEstimator(model, "cpu"), BatchLoader(dataset, 1), ref, seed=3)
+    assert written == 1
+    _same_files(out, ref, [os.path.join(folder, "00000000.pfm")
+                           for folder in ("depth_est", "confidence")])
+
+
+def test_forward_at_20_sources_matches_jax(scene21):
+    sample = MVSDataset(scene21, 20, ".png")[0]
+    arrays = [np.asarray(sample[k], np.float32)[None] for k in
+              ("images", "intrinsics", "extrinsics", "depth_min", "depth_max")]
+    noise = np.random.default_rng(0).random((1, 48, 8, 10), np.float32)
+    model = PatchmatchNet()  # f32
+    model.load_state_dict(load_any_checkpoint(CKPT), strict=True)
+    with torch.inference_mode():
+        depth, conf, dp = model(*[torch.from_numpy(a) for a in arrays],
+                                init_noise=torch.from_numpy(noise))
+    ours = (depth.numpy(), conf.numpy(), {s: [d.numpy() for d in v] for s, v in dp.items()})
+    jmodel = JaxPatchmatchNet()
+    fwd = jax.jit(lambda v, *a, noise: jmodel.apply(v, *a, train=False, init_noise=noise))
+    jd, jc, jdp = fwd(load_variables(CKPT), *[jnp.asarray(a) for a in arrays],
+                      noise=jnp.asarray(noise))
+    ref = (np.asarray(jd), np.asarray(jc), jax.tree.map(np.asarray, jdp))
+    jax.clear_caches()
+    _check_against(ours, ref, float(sample["depth_max"] - sample["depth_min"]))
 
 
 def test_train_one_epoch(scene, tmp_path):
