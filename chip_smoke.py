@@ -169,9 +169,18 @@ result line:
    (e) `dev.bf16_accuracy` on both fixtures, f32 at the golden bounds;
    (f) `dev.bf16_scene_check` at 400x288 N=5 and 1056x1920 N=7, failing
    unless bf16's median delta to f32 is below f32's median |depth - GT|
-   (the factor printed); (g) one bf16 forward of the bench's inputs at the
-   DTU, Tanks and ETH3D geometries: CUDA-event ms, device-busy ms (a
-   trace of 10) and the device's idle share. Prints the phase's seconds.
+   (the factor printed); (g) the roofline on the card: one bf16 forward
+   of the bench's inputs at the DTU, Tanks and ETH3D geometries and one
+   bf16 train step at 640x512, N=5, B=2 (the bench's train side):
+   CUDA-event ms, device-busy ms and the device's idle share, and each
+   trace group's device ms (`utils.trace.trace_group`: convolutions, each
+   hand kernel,
+   the rest as glue; a trace of 10 forwards, of 2 steps) beside the bound
+   `dev.roofline` gives the group, with the share bound / measured, and
+   `roofline_mfu`, the whole bound over the event ms. Fails if a group's
+   share is over 1.05 twice (a count that is wrong; it is traced once more
+   first) or if no whole trace was taken ("not measured"). Prints the
+   phase's seconds.
 16. training precision and the remaining CLI paths: (a) `python -m
    patchmatchnet_torch.dev.bf16_train_compare --steps 300 --log-every 1`
    in its own process (COMPARE_TIMEOUT): f32 then bf16 from scratch at
@@ -198,6 +207,19 @@ result line:
    sources) at B = 2, `--num_views 5`, from the released weights: 3 finite
    steps and a validation, ms per step, launches of 3 steps and 4
    validation forwards. Prints the phase's seconds.
+17. the eval presets beyond DTU: `bash scripts/eval_torch.sh run_eth3d`
+   and `run_tanks` (scripts/eval.sh's flags), each in its own process
+   (PRESET_TIMEOUT), over a scan of the plane in PNG: ETH3D's 7 landscape
+   views of 6048x4032 and one portrait view of 4032x6048, which
+   `--image_max_dim 2688` shrinks to 2688x1792 and 1792x2688 (the portrait
+   reference's landscape sources resized to it by the dataset); Tanks' 7
+   views of 1920x1080. Every reference has 6 sources. Per preset: ms per
+   map (the first request apart), ms per fused view, fusion's peak device
+   MiB, the fused points and their median |z - plane|, launches per map
+   (K1 6 / K6 4 / K2 5 / K3 3); fails on a non-finite map or one of the
+   wrong size, an empty PLY or other launches, and unless view 0's map
+   equals DepthEstimator's in this process (max |diff| 0). Prints the
+   phase's seconds.
 
 The last line is {"ok": true, "device": {...}}; the line before it holds
 the per-kernel JSON summary.
@@ -208,6 +230,7 @@ from __future__ import annotations
 import json
 import math
 import os
+import re
 import shutil
 import statistics
 import subprocess
@@ -344,6 +367,10 @@ TANKS_H, TANKS_W, ETH3D_H, ETH3D_W = 1056, 1920, 1792, 2688
 TANKS_RIG_BASELINES = DTU_RIG_BASELINES + (-1.05,)
 DATASET_ITERS = 2
 SCENE_CHECKS = ((288, 400, 5), (1056, 1920, 7))
+# phase 15 (g): a trace group's device ms may not be below the roofline's
+# bound for it; a share (bound / measured) above this is a count that is
+# wrong, with room for the profiler's clock
+ROOFLINE_SHARE_MAX = 1.05
 # training precision and the remaining CLI paths (phase 16): (a) the
 # f32-against-bf16 comparison at its defaults (640x512, N=5, B=2, from
 # scratch) for 300 steps, with its gates, set before its first run on the
@@ -363,6 +390,22 @@ COMPARE_SOURCES = 5
 COMPARE_DROP, COMPARE_ERR_FACTOR, COMPARE_ERR_SLACK, COMPARE_DIV_MEDIAN = 0.1, 1.5, 1e-3, 0.25
 MANY_SOURCES = 20
 RAW_DTU_VIEWS, RAW_DTU_LIGHTS, RAW_DTU_STEPS = 5, 7, 3
+# the eval presets beyond DTU (phase 17): scripts/eval_torch.sh's run_eth3d
+# and run_tanks, each over a scan of the plane whose references have 6
+# sources (1 + 6 views a map, the presets' 7 asked for and 6 listed). ETH3D:
+# 7 landscape views at its 6048x4032 sensor size and one portrait view
+# (4032 wide) placed above the rig, a reference with the 6 nearest landscape
+# views; a landscape reference lists only landscape sources, since fusion
+# stacks a reference's source maps, which must share a size (in the JAX
+# package too). Tanks: 7 views at 1920x1080. PNG images (JPG's 4:2:0 chroma
+# would bias the plane), written fast (zlib level 1). The texture keeps
+# phase 12 (a)'s period of ~4.6 px at the evaluated size (the preset keeps
+# pixels of confidence > 0.6 and 0.8).
+PRESET_SOURCES = 6
+# the sensors' sizes and the presets' --image_max_dim
+ETH3D_SENSOR_H, ETH3D_SENSOR_W, ETH3D_MAX_DIM = 4032, 6048, 2688
+TANKS_VIDEO_H, TANKS_VIDEO_W, TANKS_MAX_DIM = 1080, 1920, 2048
+PRESET_TIMEOUT = 400  # seconds, each preset's process
 
 
 def parity_tol(name: str, interval: float, size: int = 0):
@@ -374,63 +417,6 @@ def parity_tol(name: str, interval: float, size: int = 0):
     return 2e-3, 2e-5
 
 
-# The card's peak rates for the bound of a kernel (NVIDIA H100 SXM data
-# sheet): device memory 3.35 TB/s; f32 outside the tensor cores 67 TFLOP/s.
-# Every hand kernel computes in f32 on the CUDA cores.
-MEMORY_BYTES_PER_S = 3.35e12
-F32_OPS_PER_S = 67e12
-
-
-def nbytes(*tensors) -> int:
-    return sum(t.numel() * t.element_size() for t in tensors)
-
-
-def sample_ops(c: int) -> int:
-    """f32 operations to reduce one sample of a C-channel map (K1, K3, K7):
-    4 bilinear taps x C multiply-adds, C multiply-adds with the reference,
-    and ~24 for the cell, the weights and the group scaling."""
-    return 10 * c + 24
-
-
-def kernel_work(name: str, args, out) -> tuple:
-    """(bytes, operations) one call of kernel `name` must do on these
-    inputs: each input read once and each output written once, and its
-    f32 arithmetic (a multiply-add is 2 operations)."""
-    if name == "warp_group_corr":  # src, mat12, depth, ref, g
-        src, _, depth, _, _ = args
-        return nbytes(*args[:4], out), depth.numel() * sample_ops(src.shape[-1])
-    if name == "coord_group_corr":  # src, ix, iy, ref, g
-        src, ix, _, _, _ = args
-        return nbytes(*args[:4], out), ix.numel() * sample_ops(src.shape[-1])
-    if name == "warp_group_corr_views":  # src [B,V,...], mats, depth, ref, vw, g
-        src, _, depth, _, _, g = args
-        per_view = sample_ops(src.shape[-1]) + 2 * g  # and the weighted sum
-        return nbytes(*args[:5], out), depth.numel() * src.shape[1] * per_view
-    if name == "neighbor_group_corr":  # ref, (gx, gy), g
-        ref, (gx, gy), _ = args
-        return nbytes(ref, gx, gy, out), gx.numel() * sample_ops(ref.shape[-1])
-    if name == "eval_grid_score":  # x_norm, cost, (gx, gy), fw, interval
-        x_norm, cost, (gx, gy), fw, _ = args
-        # per (pixel, hypothesis, neighbour): 2 four-tap samples, the
-        # sigmoid weight and the two sums, ~40 operations
-        return nbytes(x_norm, cost, gx, gy, fw, out), x_norm.numel() * gx.shape[1] * 40
-    if name == "warp_group_corr_backward":  # src, mat12, depth, ref, g, dout
-        src, _, depth, _, _, dout = args
-        return (nbytes(*args[:4], dout, *out),
-                depth.numel() * (2 * sample_ops(src.shape[-1])))
-    if name == "neighbor_group_corr_backward":  # ref, (gx, gy), g, dout
-        ref, (gx, gy), _, dout = args
-        return nbytes(ref, gx, gy, dout, *out), gx.numel() * (sample_ops(ref.shape[-1]) + 8)
-    raise KeyError(name)
-
-
-def bound(work_bytes: float, work_ops: float):
-    """(ms, "bytes" or "operations"): the least time the card could take."""
-    by_bytes = work_bytes / MEMORY_BYTES_PER_S * 1e3
-    by_ops = work_ops / F32_OPS_PER_S * 1e3
-    return (by_bytes, "bytes") if by_bytes >= by_ops else (by_ops, "operations")
-
-
 def new_summary(names):
     return {name: {"max_abs_err": 0.0, "ms": 0.0, "plain_ms": 0.0, "device_ms": 0.0,
                    "bytes": 0, "ops": 0}
@@ -440,6 +426,8 @@ def new_summary(names):
 def add_time(entry, name, args, out, launches, ms, plain_ms, dev_ms):
     """Add `launches` calls of `name` at these inputs to a summary entry
     (its device_ms becomes None once a device time is missing)."""
+    from patchmatchnet_torch.dev.roofline import kernel_work
+
     work_bytes, work_ops = kernel_work(name, args, out)
     entry["ms"] += ms * launches
     entry["plain_ms"] += plain_ms * launches
@@ -535,6 +523,7 @@ def kernel_parity(device):
 
     from patchmatchnet_torch import ops
     from patchmatchnet_torch.dev.profile_coord import rig_mats
+    from patchmatchnet_torch.dev.roofline import bound, kernel_work
     from patchmatchnet_torch.models.patchmatch import (
         STAGE_CONFIG,
         build_offset_grid,
@@ -1043,6 +1032,7 @@ def backward_parity(device):
 
     from patchmatchnet_torch import ops
     from patchmatchnet_torch.dev.profile_backward import path_depth
+    from patchmatchnet_torch.dev.roofline import bound, kernel_work
     from patchmatchnet_torch.models.patchmatch import (
         STAGE_CONFIG,
         build_offset_grid,
@@ -1480,6 +1470,7 @@ def gather_phase(device):
     import torch
 
     from patchmatchnet_torch.dev import bench_gather
+    from patchmatchnet_torch.dev.roofline import bound
     from patchmatchnet_torch.ops import cuda_build
     from patchmatchnet_torch.utils.trace import fmt_ms
 
@@ -1652,10 +1643,19 @@ def run_module(label: str, module: str, argv, timeout: int):
     """Run `python -m <module> <argv>` from the checkout, killed at
     `timeout` s. Returns (the completed process, seconds); fails on a
     non-zero exit or a timeout."""
+    return run_command(label, [sys.executable, "-m", module, *argv], timeout)
+
+
+def run_command(label: str, command, timeout: int):
+    """Run `command` from the checkout with this interpreter first on the
+    PATH (scripts call `python`), killed at `timeout` s. Returns (the
+    completed process, seconds); fails on a non-zero exit or a timeout."""
+    env = dict(os.environ, PATH=os.path.dirname(sys.executable) + os.pathsep
+               + os.environ.get("PATH", ""))
     start = time.perf_counter()
     try:
-        proc = subprocess.run([sys.executable, "-m", module, *argv], cwd=REPO,
-                              capture_output=True, text=True, timeout=timeout)
+        proc = subprocess.run(command, cwd=REPO, env=env, capture_output=True, text=True,
+                              timeout=timeout)
     except subprocess.TimeoutExpired:
         fail(f"{label}: no result within {timeout} s")
     seconds = time.perf_counter() - start
@@ -1674,6 +1674,13 @@ def printed_launches(text: str) -> dict:
         if line.startswith("kernel launches: "):
             counts = ast.literal_eval(line[len("kernel launches: "):])
     return counts
+
+
+# eval's summary line (`cli.cmd_eval`): maps, seconds, ms per map, the first
+# request's ms and the median of the others
+WROTE_MAPS = re.compile(r"Wrote (\d+) depth/confidence map pairs in ([\d.]+) s \(([\d.]+) ms per "
+                        r"map\); request ms: first ([\d.]+) \(set-up included\), then median "
+                        r"([\d.]+)")
 
 
 def run_cli(label: str, argv, timeout: int):
@@ -1735,8 +1742,6 @@ def cli_path(device, scratch, smi) -> None:
     640x512) from the released weights; (c) the variant configuration
     (VARIANT_FLAGS) trained one epoch from scratch at 640x512, B = 2, then
     evaluated from the module it wrote at 1152x864, 1 + 4 views."""
-    import re
-
     import numpy as np
     import torch
     from PIL import Image
@@ -1767,9 +1772,7 @@ def cli_path(device, scratch, smi) -> None:
         "eval (DTU preset)", ["eval", "--input_folder", root, "--output_folder", out,
                               "--checkpoint_path", CKPT, "--scan_list", scan_list,
                               "--image_extension", ".png", *DTU_EVAL_FLAGS], CLI_TIMEOUT)
-    maps = re.search(r"Wrote (\d+) depth/confidence map pairs in ([\d.]+) s \(([\d.]+) ms per "
-                     r"map\); request ms: first ([\d.]+) \(set-up included\), then median ([\d.]+)",
-                     stdout)
+    maps = WROTE_MAPS.search(stdout)
     fused = re.search(r"Fused (\S+) in ([\d.]+) s", stdout)
     if not maps or not fused or int(maps.group(1)) != CLI_EVAL_VIEWS:
         fail(f"CLI eval printed no map or fusion timing for {CLI_EVAL_VIEWS} views")
@@ -2332,6 +2335,7 @@ def tanks_kernel_parity(device, smi) -> None:
     import torch
 
     from patchmatchnet_torch import ops
+    from patchmatchnet_torch.dev.roofline import bound, kernel_work
     from patchmatchnet_torch.models.patchmatch import (
         STAGE_CONFIG,
         build_offset_grid,
@@ -2433,29 +2437,94 @@ def tanks_kernel_parity(device, smi) -> None:
         fail(f"K6 at V = {views} differs from the per-view route by {route_diff:.3e}")
 
 
+def hold_roofline(label: str, fn, calls: int, rows, event_ms: float, smi: str) -> None:
+    """Phase 15 (g): trace `calls` calls of fn() and print, beside the
+    card, each trace group's device ms (`utils.trace.device_ms_by_group`)
+    next to the roofline's bound for the group (`dev.roofline` rows) and the
+    share bound / measured, the device busy and idle share, and
+    `roofline_mfu` over `event_ms`. A group whose share is over
+    ROOFLINE_SHARE_MAX (a count that is wrong) is traced once more before
+    the phase fails; a trace that dropped events prints "not measured" and
+    fails the phase."""
+    from patchmatchnet_torch.dev.roofline import roofline_mfu, summary
+    from patchmatchnet_torch.utils.trace import device_ms_by_group
+
+    total = summary(rows)
+    for attempt in (1, 2):
+        traced = device_ms_by_group(fn, calls)
+        if traced is None:
+            print(f"  {label}: device time by group not measured (every trace of {calls} calls "
+                  f"dropped events) [{smi}]", flush=True)
+            fail(f"{label}: no whole trace for the roofline's groups")
+        busy, measured = traced
+        shares = {g: (b / measured[g] if measured.get(g) else math.inf)
+                  for g, b in total["groups"].items()}
+        print(f"  {label}: {event_ms:.2f} ms by events, device busy {busy:.4f} ms, idle share "
+              f"{1.0 - busy / event_ms:.3f}; bound {total['bound_ms']:.4f} ms, roofline_mfu "
+              f"{roofline_mfu(total['bound_ms'], event_ms):.4f} [{smi}]", flush=True)
+        for g in sorted(set(total["groups"]) | set(measured)):
+            bound_ms = total["groups"].get(g, 0.0)
+            got = measured.get(g)
+            share = f"{shares[g]:.3f}" if g in shares else "-"
+            print(f"    {g}: device {'not measured' if got is None else f'{got:.4f} ms'}, "
+                  f"bound {bound_ms:.4f} ms, share {share}", flush=True)
+        over = {g: v for g, v in shares.items() if v > ROOFLINE_SHARE_MAX}
+        if not over:
+            return
+        print(f"  {label}: share over {ROOFLINE_SHARE_MAX} in {sorted(over)}"
+              + ("; tracing once more" if attempt == 1 else ""), flush=True)
+    fail(f"{label}: roofline share over {ROOFLINE_SHARE_MAX}: {over}")
+
+
 def device_busy_per_forward(device, smi) -> None:
     """Phase 15 (g): the bf16 forward of the bench's inputs at the DTU,
-    Tanks and ETH3D geometries: its device-busy ms (`utils.trace.device_ms`,
-    a trace of 10 forwards) beside its CUDA-event ms (median of 10 single
-    forwards, the host's launches included), and the device's idle share,
-    1 - busy / event ms."""
+    Tanks and ETH3D geometries and one bf16 train step of the bench's train
+    side (640x512, N=5, B=2) against the roofline (`dev.roofline`): the
+    CUDA-event ms (median of 10 single forwards, of 5 steps; the host's
+    launches included), device busy and the idle share, each trace group's
+    device ms beside its bound and share (a trace of 10 forwards, of 2
+    steps), and `roofline_mfu`, the whole bound over the event ms
+    (`hold_roofline`)."""
     import torch
 
-    from patchmatchnet_torch.bench import build_inputs, forward, load_model
-    from patchmatchnet_torch.utils.trace import device_ms, fmt_ms
+    from patchmatchnet_torch.bench import (
+        TRAIN_LR,
+        build_inputs,
+        forward,
+        load_model,
+        seeded_model,
+        train_batch,
+    )
+    from patchmatchnet_torch.dev.roofline import GEOMETRIES, count
+    from patchmatchnet_torch.models.patchmatch import INITIAL_NUM_SAMPLES
+    from patchmatchnet_torch.train import batch_to_device, make_optimizer, train_step
 
     model = load_model(True, device)
-    for label, (h, w, views) in (("DTU", (864, 1152, 5)), ("Tanks", (TANKS_H, TANKS_W, 7)),
-                                 ("ETH3D", (ETH3D_H, ETH3D_W, 7))):
-        arrays = build_inputs(1, views, h, w)
+    for key in ("dtu", "tanks", "eth3d"):
+        h, w, views, batch, _ = geometry = GEOMETRIES[key]
+        arrays = build_inputs(batch, views, h, w)
         inputs = [torch.from_numpy(a).to(device) for a in arrays[:5]]
         noise = torch.from_numpy(arrays[5]).to(device)
         ms = time_ms(lambda: forward(model, inputs, noise), reps=10)
-        busy = device_ms(lambda: forward(model, inputs, noise))
-        idle = "not measured" if busy is None else f"{1.0 - busy / ms:.3f}"
-        print(f"  bf16 forward at {label} {w}x{h} N={views}: {ms:.2f} ms by events, device busy "
-              f"{fmt_ms(busy)}, idle share {idle} [{smi}]", flush=True)
+        hold_roofline(f"bf16 forward at {key} {w}x{h} N={views}",
+                      lambda: forward(model, inputs, noise), 10, count(geometry, "bf16"), ms,
+                      smi)
         del inputs, noise
+    del model
+    h, w, views, batch, _ = geometry = GEOMETRIES["train"]
+    tensors = batch_to_device(train_batch(batch, views, h, w), device)
+    model = seeded_model(torch.bfloat16).to(device)
+    optimizer = make_optimizer(model.parameters(), TRAIN_LR)
+    gen = torch.Generator(device=device).manual_seed(2)
+
+    def step():
+        noise = torch.rand((batch, INITIAL_NUM_SAMPLES, h // 8, w // 8), generator=gen,
+                           device=device)
+        return train_step(model, optimizer, tensors, TRAIN_LR, noise)
+
+    ms = time_ms(step, reps=5, warmup=2)
+    hold_roofline(f"bf16 train step at {w}x{h} N={views} B={batch}", step, 2,
+                  count(geometry, "bf16"), ms, smi)
 
 
 def measurement_programs(device, scratch, smi) -> None:
@@ -2601,8 +2670,6 @@ def write_raw_dtu(root: str, views: int, lights: int, texture: float) -> str:
 def compare_curves(stderr: str):
     """The per-step lines of `dev.bf16_train_compare --log-every 1`:
     {precision: (losses, stage-0 depth errors, step walls in ms)}."""
-    import re
-
     curves = {"f32": ([], [], []), "bf16": ([], [], [])}
     pattern = re.compile(r"^\[(f32|bf16)\] step\s+(\d+) loss (\S+) depth-err (\S+) "
                          r"wall (\S+) ms$")
@@ -2629,8 +2696,6 @@ def precision_and_cli_paths(device, scratch, smi) -> None:
     three stage shapes against the per-view route to the bit and its plain
     version at phase 3's bounds; (c) `train --dataset dtu_legacy` at 640x512,
     B = 2, 1 + 4 views, 3 steps from the released weights."""
-    import re
-
     import numpy as np
     import torch
     from PIL import Image
@@ -2638,6 +2703,7 @@ def precision_and_cli_paths(device, scratch, smi) -> None:
     from patchmatchnet_torch import ops
     from patchmatchnet_torch.bench import seeded_model
     from patchmatchnet_torch.config import Config
+    from patchmatchnet_torch.dev.roofline import bound, kernel_work
     from patchmatchnet_torch.data import (
         PLANE_Z,
         BatchLoader,
@@ -2741,9 +2807,7 @@ def precision_and_cli_paths(device, scratch, smi) -> None:
         f"eval ({MANY_SOURCES} sources)", ["eval", "--input_folder", scene, "--output_folder",
                                            out, "--checkpoint_path", CKPT,
                                            "--image_extension", ".png"], CLI_TIMEOUT)
-    maps = re.search(r"Wrote (\d+) depth/confidence map pairs in ([\d.]+) s \(([\d.]+) ms per "
-                     r"map\); request ms: first ([\d.]+) \(set-up included\), then median ([\d.]+)",
-                     stdout)
+    maps = WROTE_MAPS.search(stdout)
     fused = re.search(r"Fused (\S+) in ([\d.]+) s", stdout)
     if not maps or not fused or int(maps.group(1)) != views:
         fail(f"CLI eval ({MANY_SOURCES} sources) printed no map or fusion timing for {views} "
@@ -2855,6 +2919,162 @@ def precision_and_cli_paths(device, scratch, smi) -> None:
                      (val, forward_launches(RAW_DTU_VIEWS - 1, 5))])
     print(f"training precision and CLI paths phase: {time.perf_counter() - started:.1f} s",
           flush=True)
+
+
+def write_plane_scan(root: str, cameras, texture: float) -> None:
+    """A scan of the textured plane (`data.synthetic`'s world texture at
+    z = PLANE_Z, depth range 0.8-1.3 x PLANE_Z) for `cameras`, one
+    (height, width, x, y) per view (identity rotation, centre (x, y, 0),
+    focal length 1.1 x the longer side), with pair.txt giving each
+    reference its PRESET_SOURCES nearest views of its own size, or for a
+    portrait reference of the landscape views, best first. Images are PNG
+    at zlib level 1, rendered on threads."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    import numpy as np
+    from PIL import Image
+
+    from patchmatchnet_torch.data import PLANE_Z, save_cam_file, save_pair_file
+    from patchmatchnet_torch.data.synthetic import world_texture
+
+    for folder in ("images", "cams"):
+        os.makedirs(os.path.join(root, folder), exist_ok=True)
+
+    def write(v):
+        h, w, tx, ty = cameras[v]
+        f = 1.1 * max(h, w)
+        k = np.array([[f, 0, w / 2.0], [0, f, h / 2.0], [0, 0, 1]], dtype=np.float32)
+        e = np.eye(4, dtype=np.float32)
+        e[0, 3], e[1, 3] = -tx, -ty
+        # the texture is separable in x and y: rows and columns back-projected once
+        xs = (np.arange(w) - k[0, 2]) / k[0, 0] * PLANE_Z + tx
+        ys = (np.arange(h) - k[1, 2]) / k[1, 1] * PLANE_Z + ty
+        image = world_texture(xs[None, :], ys[:, None], texture)
+        Image.fromarray((image * 255).astype(np.uint8)).save(
+            os.path.join(root, "images", f"{v:08d}.png"), compress_level=1)
+        save_cam_file(os.path.join(root, "cams", f"{v:08d}_cam.txt"), k, e,
+                      [0.8 * PLANE_Z, 1.3 * PLANE_Z])
+
+    with ThreadPoolExecutor(8) as pool:
+        list(pool.map(write, range(len(cameras))))
+    def source(v, s):  # a view of v's size; for a portrait v, a landscape view
+        (h, w), (sh, sw) = cameras[v][:2], cameras[s][:2]
+        return s != v and ((sh, sw) == (h, w) or sh < sw and h > w)
+
+    pairs = []
+    for v, (_, _, tx, ty) in enumerate(cameras):
+        dist = sorted((math.hypot(cameras[s][2] - tx, cameras[s][3] - ty), s)
+                      for s in range(len(cameras)) if source(v, s))
+        pairs.append((v, [(s, 10.0 - d) for d, s in dist[:PRESET_SOURCES]]))
+    save_pair_file(os.path.join(root, "pair.txt"), pairs)
+
+
+def eval_preset(device, scratch, smi, preset: str, cameras, max_dim: int) -> float:
+    """One preset of scripts/eval_torch.sh (phase 17) over a scan of the
+    plane at `cameras`' sizes, in its own process: its maps and fused.ply,
+    ms per map (the first request apart) and per fused view, fusion's peak
+    device MiB, the points and their median |z - plane|, launches per map
+    (`forward_launches` of PRESET_SOURCES sources); view 0 against
+    DepthEstimator in this process (max |diff| 0). Returns its seconds."""
+    import numpy as np
+    import torch
+
+    from patchmatchnet_torch.config import Config
+    from patchmatchnet_torch.data import (
+        PLANE_Z,
+        BatchLoader,
+        MVSDataset,
+        read_pfm,
+        read_ply,
+        scaled_dims,
+    )
+    from patchmatchnet_torch.infer import DepthEstimator
+    from patchmatchnet_torch.train.driver import build_model, load_any_checkpoint
+
+    started = time.perf_counter()
+    scan = "scan1"
+    root = os.path.join(scratch, preset)
+    write_plane_scan(os.path.join(root, scan), cameras, CLI_EVAL_TEXTURE * max_dim / CLI_EVAL_W)
+    written = time.perf_counter() - started
+    scan_list = os.path.join(root, "scans.txt")
+    with open(scan_list, "w") as f:
+        f.write(scan + "\n")
+    out = os.path.join(scratch, f"{preset}_out")
+    proc, seconds = run_command(
+        f"scripts/eval_torch.sh {preset}", ["bash", "scripts/eval_torch.sh", preset, root, out,
+                                            scan_list, "--image_extension", ".png"],
+        PRESET_TIMEOUT)
+    stdout = proc.stdout
+    counts = printed_launches(stdout)
+    maps = WROTE_MAPS.search(stdout)
+    fused = re.search(r"Fused (\S+) in ([\d.]+) s \(peak device memory ([\d.]+) MiB\)", stdout)
+    views = len(cameras)
+    if not maps or not fused or int(maps.group(1)) != views:
+        print(stdout[-2000:], flush=True)
+        fail(f"{preset} printed no map, fusion timing or peak memory for {views} views")
+    expect_launches(preset, counts, [(views, forward_launches(PRESET_SOURCES, 5))])
+    errs = []
+    for v, (h, w, _, _) in enumerate(cameras):
+        shape = scaled_dims(h, w, max_dim)
+        depth = read_pfm(os.path.join(out, scan, "depth_est", f"{v:08d}.pfm"))[..., 0]
+        conf = read_pfm(os.path.join(out, scan, "confidence", f"{v:08d}.pfm"))[..., 0]
+        for name, m in (("depth", depth), ("confidence", conf)):
+            if m.shape != shape or not np.isfinite(m).all():
+                fail(f"{preset} view {v}: {name} map {m.shape} (expected {shape}), finite "
+                     f"{np.isfinite(m).all()}")
+        errs.append(float(np.median(np.abs(depth - PLANE_Z))))
+    xyz, _ = read_ply(fused.group(1))
+    z_err = float(np.median(np.abs(xyz[:, 2] - PLANE_Z))) if xyz.shape[0] else float("nan")
+    sizes = sorted({(w, h) for h, w, _, _ in cameras})
+    shown = " and ".join(f"{w}x{h} (at {scaled_dims(h, w, max_dim)[1]}x"
+                         f"{scaled_dims(h, w, max_dim)[0]})" for w, h in sizes)
+    print(f"{preset} ({shown} images at --image_max_dim {max_dim}"
+          f"; {views} maps of 1 + {PRESET_SOURCES} views): {float(maps.group(3)):.2f} ms per "
+          f"map ({maps.group(2)} s in all; requests: the first {maps.group(4)} ms with its "
+          f"set-up, then median {maps.group(5)} ms); fusion "
+          f"{float(fused.group(2)) * 1e3 / views:.2f} ms per fused view ({fused.group(2)} s), "
+          f"peak device memory {fused.group(3)} MiB at {PRESET_SOURCES} sources per reference; "
+          f"{xyz.shape[0]} points, median |z - plane| {z_err:.4f}; launches {counts} = {views} x "
+          f"{forward_launches(PRESET_SOURCES, 5)}; median |depth - plane| per map (not gated) "
+          + " ".join(f"{e:.4f}" for e in errs)
+          + f"; process {seconds:.1f} s, scene written in {written:.1f} s [{smi}]", flush=True)
+    if xyz.shape[0] == 0:
+        fail(f"{preset}: fused.ply has no points")
+
+    model = build_model(Config(), inference=True)
+    model.load_state_dict(load_any_checkpoint(CKPT), strict=True)
+    estimator = DepthEstimator(model, device=device)
+    dataset = MVSDataset(root, PRESET_SOURCES + 1, ".png", max_dim=max_dim, scan_list=scan_list)
+    batch = next(iter(BatchLoader(dataset, 1, num_threads=1)))
+    if batch["images"].shape[1] != PRESET_SOURCES + 1:
+        fail(f"{preset}: {batch['images'].shape[1]} views a sample, expected "
+             f"{PRESET_SOURCES + 1}")
+    depth = estimator(batch, torch.Generator(device=device).manual_seed(0))[0][0]
+    cli_depth = read_pfm(os.path.join(out, scan, "depth_est", "00000000.pfm"))[..., 0]
+    diff = float(np.abs(depth - cli_depth).max())
+    print(f"{preset} view 0 against DepthEstimator in this process: max |diff| {diff:.3e}",
+          flush=True)
+    if diff != 0.0:
+        fail(f"{preset}: the CLI's view 0 differs from DepthEstimator by {diff:.3e}")
+    del estimator, model
+    torch.cuda.empty_cache()
+    return time.perf_counter() - started
+
+
+def eval_presets_path(device, scratch, smi) -> None:
+    """Phase 17: scripts/eval_torch.sh's run_eth3d over 7 landscape views of
+    ETH3D's 6048x4032 and one portrait view (evaluated at 2688x1792 and
+    1792x2688), and run_tanks over 7 views of 1920x1080 (`eval_preset`)."""
+    started = time.perf_counter()
+    baseline = 0.35
+    landscape = [(ETH3D_SENSOR_H, ETH3D_SENSOR_W, baseline * (v - 3), 0.0) for v in range(7)]
+    portrait = [(ETH3D_SENSOR_W, ETH3D_SENSOR_H, baseline / 2, baseline)]
+    eth3d = eval_preset(device, scratch, smi, "run_eth3d", landscape + portrait, ETH3D_MAX_DIM)
+    tanks = eval_preset(device, scratch, smi, "run_tanks",
+                        [(TANKS_VIDEO_H, TANKS_VIDEO_W, baseline * (v - 3), 0.0)
+                         for v in range(7)], TANKS_MAX_DIM)
+    print(f"eval presets phase: {time.perf_counter() - started:.1f} s (run_eth3d {eth3d:.1f}, "
+          f"run_tanks {tanks:.1f})", flush=True)
 
 
 def read_training_run(out: str, steps: int):
@@ -3008,6 +3228,16 @@ def main() -> int:
         precision_and_cli_paths(device, scratch, smi)
     finally:
         shutil.rmtree(scratch, ignore_errors=True)
+
+    phase("eval presets: scripts/eval_torch.sh run_eth3d (6048x4032 and a portrait view at "
+          "--image_max_dim 2688) and run_tanks (1920x1080), 1 + 6 views a map, with fusion")
+    scratch = tempfile.mkdtemp(prefix="smoke_presets_", dir=os.path.join(REPO, "build"))
+    try:
+        eval_presets_path(device, scratch, smi)
+    finally:
+        shutil.rmtree(scratch, ignore_errors=True)
+
+    from patchmatchnet_torch.dev.roofline import bound
 
     kernels = []
     for name, (src, replaces) in KERNEL_INFO.items():

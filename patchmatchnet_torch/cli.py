@@ -205,10 +205,18 @@ def _fuse_scans(args: argparse.Namespace, device: torch.device) -> None:
                        geo_depth_thres=args.geo_depth_thres, geo_mask_thres=args.geo_mask_thres,
                        photo_thres=args.photo_thres, file_format=args.file_format,
                        image_extension=args.image_extension)
+    # without CUDA, filter_and_fuse raises for a CUDA device
+    on_card = device.type == "cuda" and torch.cuda.is_available()
     for scan in _scan_names(args.scan_list):
+        if on_card:
+            torch.cuda.reset_peak_memory_stats(device)
         start = time.perf_counter()
         ply = filter_and_fuse(args.input_folder, args.output_folder, scan, cfg, device=device)
-        print(f"Fused {ply} in {time.perf_counter() - start:.3f} s")
+        line = f"Fused {ply} in {time.perf_counter() - start:.3f} s"
+        if on_card:
+            line += (f" (peak device memory "
+                     f"{torch.cuda.max_memory_allocated(device) / 2**20:.1f} MiB)")
+        print(line)
 
 
 def _sum_launches(launches: List[Dict[str, int]]) -> Dict[str, int]:

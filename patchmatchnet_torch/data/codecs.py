@@ -38,6 +38,28 @@ def resize_images(images: np.ndarray, height: int, width: int) -> np.ndarray:
     return top + (bot - top) * fy
 
 
+def resize_bilinear_image(image: np.ndarray, height: int, width: int) -> np.ndarray:
+    """[H, W, C] float -> [height, width, C], bilinear with half-pixel
+    centers in the arithmetic of the JAX package's numpy resize
+    (`patchmatchnet_tpu/dataio/image.py` `resize_bilinear_np`), to the
+    bit: f64 source coordinates, weights in the image's dtype, and
+    `p00 * (1 - fx) + p01 * fx`, the same below, then `top * (1 - fy) +
+    bot * fy`. The dataset sizes a source view to its reference with it."""
+    in_h, in_w = image.shape[:2]
+    if (in_h, in_w) == (height, width):
+        return image
+    yy = (np.arange(height, dtype=np.float64) + 0.5) * (in_h / height) - 0.5
+    xx = (np.arange(width, dtype=np.float64) + 0.5) * (in_w / width) - 0.5
+    yy, xx = np.clip(yy, 0.0, in_h - 1.0), np.clip(xx, 0.0, in_w - 1.0)
+    y0, x0 = np.floor(yy).astype(np.int64), np.floor(xx).astype(np.int64)
+    y1, x1 = np.minimum(y0 + 1, in_h - 1), np.minimum(x0 + 1, in_w - 1)
+    wy = (yy - y0).astype(image.dtype)[:, None, None]
+    wx = (xx - x0).astype(image.dtype)[None, :, None]
+    top = image[y0][:, x0] * (1 - wx) + image[y0][:, x1] * wx
+    bot = image[y1][:, x0] * (1 - wx) + image[y1][:, x1] * wx
+    return top * (1 - wy) + bot * wy
+
+
 def scaled_dims(height: int, width: int, max_dim: int) -> Tuple[int, int]:
     """The (H, W) that `scale_to_max_dim` gives an H x W image, without it."""
     scale = max_dim / max(height, width)

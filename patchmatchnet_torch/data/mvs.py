@@ -2,7 +2,9 @@
 `patchmatchnet_tpu/data/mvs.py`).
 
 A sample stacks its views [N, H, W, 3] at one resolution, view 0 the
-reference, with the reference view's ground-truth depth and the mask
+reference (a source of another size, such as a portrait view among
+landscape ones, is resized to the reference's with its intrinsics
+rescaled, as the reference does), with the reference view's ground-truth depth and the mask
 `depth_gt >= depth_min` when `depth_gt/{view:08d}.pfm` exists. Scenes may be
 listed in a scan list, with per-light image folders; `max_dim` shrinks
 images and depth maps so the longer side fits. `BatchLoader` adjusts (H, W)
@@ -33,6 +35,7 @@ from patchmatchnet_torch.data.codecs import (
     read_image,
     read_pair_file,
     read_pfm,
+    resize_bilinear_image,
     resize_images,
     scale_to_max_dim,
 )
@@ -103,14 +106,18 @@ class MVSDataset:
         for view in view_ids:
             image, orig_h, orig_w = scale_to_max_dim(read_image(os.path.join(
                 root, "images", light, f"{view:08d}{self.image_extension}")), self.max_dim)
-            if images and image.shape != images[0].shape:
-                raise ValueError(f"view {view} is {image.shape[:2]}, the reference "
-                                 f"{images[0].shape[:2]}: views must share a size")
             intrinsic, extrinsic, depth_params = read_cam_file(
                 os.path.join(root, "cams", f"{view:08d}_cam.txt"))
             intrinsic = intrinsic.copy()
             intrinsic[0] *= image.shape[1] / orig_w
             intrinsic[1] *= image.shape[0] / orig_h
+            if images and image.shape != images[0].shape:
+                # a source of another size (a portrait view among landscape
+                # ones) takes the reference's, its intrinsics rescaled
+                ref_h, ref_w = images[0].shape[:2]
+                intrinsic[0] *= ref_w / image.shape[1]
+                intrinsic[1] *= ref_h / image.shape[0]
+                image = resize_bilinear_image(image, ref_h, ref_w)
             if not images:
                 depth_min, depth_max = float(depth_params[0]), float(depth_params[1])
             images.append(image)

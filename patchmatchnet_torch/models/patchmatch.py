@@ -209,7 +209,7 @@ class FeatureWeightNet(nn.Module):
         self.conv1 = DenseBnReLU(16, 8, dtype=dtype)
         self.similarity = Dense1(8, 1, dtype=dtype)
 
-    def weights_from_corr(self, corr: torch.Tensor) -> torch.Tensor:
+    def forward(self, corr: torch.Tensor) -> torch.Tensor:
         """corr [B, G, Ke, H, W] -> [B, Ke, H, W] f32."""
         out = self.similarity(self.conv1(self.conv0(corr)))  # [B, 1, Ke, H, W]
         return torch.sigmoid(out[:, 0].float())
@@ -287,7 +287,7 @@ class Evaluation(nn.Module):
             # first iteration of the stage (reference: patchmatch.py:564-573),
             # on the detached feature: the gradient reaches the grid only
             corr = neighbor_group_corr(ref_feature.detach(), grid, self.groups)
-            feature_weight = self.feature_weight_net.weights_from_corr(corr)
+            feature_weight = self.feature_weight_net(corr)
         tail = eval_grid_score_reference if self.training else eval_grid_score
         score = tail(x_norm_img, cost_img, grid, feature_weight, interval_scale)
         score = torch.softmax(score, dim=-1)

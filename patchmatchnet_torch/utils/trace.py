@@ -1,6 +1,7 @@
 """Device traces of repeated calls: the kernel, memcpy and memset events of a
 `torch.profiler` trace, the time the device was busy, the device time of
-one call and its printed form, and a coarse kind for each kernel name.
+one call (in all, and by the groups `dev.roofline` bounds) and its printed
+form, and a coarse kind for each kernel name.
 `chip_smoke.py`, `tools/dev/profile_torch_main.py` and `dev/bench_gather.py`
 read their traces through these helpers; `hand_kernel_id` names the hand
 kernel (K1-K7, D) a device kernel name belongs to."""
@@ -13,7 +14,7 @@ import os
 import re
 import tempfile
 import warnings
-from typing import Callable, Iterable, List, Optional, Tuple
+from typing import Callable, Dict, Iterable, List, Optional, Tuple
 
 # (category, kernel or copy name, start us, duration us)
 DeviceEvent = Tuple[str, str, float, float]
@@ -60,23 +61,47 @@ def busy_union_us(intervals: Iterable[Tuple[float, float]]) -> float:
     return total + (cur_e - cur_s if cur_e is not None else 0.0)
 
 
-def device_ms(fn: Callable[[], object]) -> Optional[float]:
-    """Device time of one call of fn() on the card: the time the device was
-    busy in a torch.profiler trace of CALLS calls, over CALLS. Unlike a
-    CUDA-event time it leaves out the time the card waits for the host. The
-    profiler at times drops device events, so a trace counts only if every
-    kernel, copy and set in it occurs a whole multiple of CALLS times;
-    after TRIES traces without one, None."""
+def whole_trace(fn: Callable[[], object], calls: int) -> Optional[List[DeviceEvent]]:
+    """The device events of a torch.profiler trace of `calls` calls of
+    fn(). The profiler at times drops device events, so a trace counts
+    only if every kernel, copy and set in it occurs a whole multiple of
+    `calls` times; after TRIES traces without one, None."""
     for _ in range(TRIES):
         with tempfile.TemporaryDirectory() as tmp:
-            events = trace_device_events(fn, CALLS, os.path.join(tmp, "trace.json"))
+            events = trace_device_events(fn, calls, os.path.join(tmp, "trace.json"))
         counts = collections.Counter(name for _, name, _, _ in events)
-        if counts and all(n % CALLS == 0 for n in counts.values()):
-            return busy_union_us((s, s + d) for _, _, s, d in events) / CALLS / 1e3
-        odd = {name[:80]: n for name, n in counts.items() if n % CALLS}
-        warnings.warn(f"device_ms: trace of {CALLS} calls dropped ({len(events)} device "
-                      f"events; counts not a multiple of {CALLS}: {odd})")
+        if counts and all(n % calls == 0 for n in counts.values()):
+            return events
+        odd = {name[:80]: n for name, n in counts.items() if n % calls}
+        warnings.warn(f"whole_trace: trace of {calls} calls dropped ({len(events)} device "
+                      f"events; counts not a multiple of {calls}: {odd})")
     return None
+
+
+def device_ms(fn: Callable[[], object]) -> Optional[float]:
+    """Device time of one call of fn() on the card: the time the device was
+    busy in a whole trace (`whole_trace`) of CALLS calls, over CALLS; None
+    when no trace was whole. Unlike a CUDA-event time it leaves out the time
+    the card waits for the host."""
+    events = whole_trace(fn, CALLS)
+    if events is None:
+        return None
+    return busy_union_us((s, s + d) for _, _, s, d in events) / CALLS / 1e3
+
+
+def device_ms_by_group(fn: Callable[[], object], calls: Optional[int] = None
+                       ) -> Optional[Tuple[float, Dict[str, float]]]:
+    """(device-busy ms, {`trace_group`: device ms}) per call of fn() in a
+    whole trace of `calls` calls (CALLS by default); None when no trace
+    was whole."""
+    calls = calls or CALLS
+    events = whole_trace(fn, calls)
+    if events is None:
+        return None
+    groups: Dict[str, float] = collections.defaultdict(float)
+    for _, name, _, dur in events:
+        groups[trace_group(name)] += dur / calls / 1e3
+    return busy_union_us((s, s + d) for _, _, s, d in events) / calls / 1e3, dict(groups)
 
 
 def fmt_ms(ms: Optional[float]) -> str:
@@ -112,6 +137,17 @@ _HAND_KERNELS = {
     "gather_rows_kernel": "D5",
 }
 _TILE_MODES = {"0": "K1", "1": "K6", "2": "K3", "3": "K7"}
+
+
+def trace_group(name: str) -> str:
+    """The group of a device event that `dev.roofline` bounds: the hand
+    kernel's id (K1-K7, D1-D5), "convolutions" (`kernel_kind`'s
+    convolutions and channel-map GEMMs) or "glue" (every other kernel,
+    copy and set)."""
+    kernel = hand_kernel_id(name)
+    if kernel is not None:
+        return kernel
+    return "convolutions" if kernel_kind(name).startswith("convolutions") else "glue"
 
 
 def hand_kernel_id(name: str) -> Optional[str]:

@@ -18,6 +18,10 @@
   that loads back, a finite loss and a trace; `--dataset dtu_legacy` builds
   its loaders on the raw DTU layout.
 - `convert` writes the port's state dict of a reference `.ckpt`.
+- `scripts/eval_torch.sh` has `scripts/eval.sh`'s four presets, each with
+  its flags letter for letter; `run_eth3d` with `--device cpu` over a
+  5-view 64x80 scan writes the maps of `DepthEstimator` +
+  `save_depth_maps` byte for byte, and a fused.ply with points.
 - A batch size that `--num_devices` does not divide is refused before any
   work, with the JAX messages; so is `--device cuda` without CUDA
   (tests/test_torch_parallel.py runs `--num_devices 2`).
@@ -31,7 +35,10 @@ import filecmp
 import json
 import math
 import os
+import re
 import shutil
+import subprocess
+import sys
 
 import jax
 import jax.numpy as jnp
@@ -63,6 +70,7 @@ from tests.test_torch_convert import reference_state_dict
 from tests.test_torch_model import _check_against
 from tests.test_torch_tools import _eth3d, _raw_dtu, _scene_with_maps
 
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CKPT = os.path.join(os.path.dirname(__file__), "..", "checkpoints", "params_000007.msgpack")
 SCENE_ARGS = ["--num_views", "3", "--image_extension", ".png"]
 FUSION_ARGS = ["--geo_mask_thres", "2", "--photo_thres", "0.3"]
@@ -331,3 +339,49 @@ def test_cuda_without_cuda_raises(scene, tmp_path):
         with pytest.raises(RuntimeError, match="CUDA"):
             cli.main(argv)
     assert not os.listdir(tmp_path)
+
+
+def _presets(script):
+    """{function: its command's words after the module name} of an eval
+    presets script (scripts/eval.sh or scripts/eval_torch.sh)."""
+    with open(os.path.join(REPO, "scripts", script)) as f:
+        text = f.read().replace("\\\n", " ")
+    return {name: body.split()[1:] for name, body in
+            re.findall(r"^(run_\w+)\(\) \{\n\s*python -m (.*?)\n\}", text, re.M | re.S)}
+
+
+@pytest.mark.parametrize("preset", ["run_dtu", "run_eth3d", "run_tanks", "run_custom"])
+def test_eval_torch_presets_have_the_eval_sh_flags(preset):
+    jax_presets, presets = _presets("eval.sh"), _presets("eval_torch.sh")
+    assert sorted(presets) == sorted(jax_presets)
+    assert presets[preset][:1] == ["eval"] and presets[preset] == jax_presets[preset]
+    with open(os.path.join(REPO, "scripts", "eval_torch.sh")) as f:
+        assert f.read().count("python -m patchmatchnet_torch eval ") == 4
+
+
+def test_run_eth3d_on_cpu_writes_the_library_maps_and_a_cloud(tmp_path):
+    root, scan = str(tmp_path / "eth3d"), "scan1"
+    make_synthetic_scene(os.path.join(root, scan), num_views=5, height=64, width=80,
+                         texture_scale=6.0)
+    scan_list = str(tmp_path / "scans.txt")
+    with open(scan_list, "w") as f:
+        f.write(scan + "\n")
+    out = str(tmp_path / "cli")
+    env = dict(os.environ, PATH=os.path.dirname(sys.executable) + os.pathsep
+               + os.environ.get("PATH", ""))
+    proc = subprocess.run(["bash", "scripts/eval_torch.sh", "run_eth3d", root, out, scan_list,
+                           "--device", "cpu", "--image_extension", ".png"], cwd=REPO, env=env,
+                          capture_output=True, text=True, timeout=600)
+    assert proc.returncode == 0, proc.stderr[-2000:]
+    assert "Wrote 5 depth/confidence map pairs" in proc.stdout
+
+    ref = str(tmp_path / "library")
+    model = PatchmatchNet(compute_dtype=torch.bfloat16)  # the default --precision bf16
+    model.load_state_dict(load_any_checkpoint(CKPT), strict=True)
+    dataset = MVSDataset(root, 7, ".png", max_dim=2688, scan_list=scan_list)
+    assert dataset[0]["images"].shape[0] == 5  # 4 sources, all the scan has
+    written = save_depth_maps(DepthEstimator(model, "cpu"), BatchLoader(dataset, 1), ref, seed=0)
+    assert written == 5
+    _same_files(out, ref, [os.path.join(scan, folder, f"{v:08d}.pfm")
+                           for folder in ("depth_est", "confidence") for v in range(5)])
+    assert read_ply(os.path.join(out, scan, "fused.ply"))[0].shape[0] > 0

@@ -27,6 +27,7 @@ from patchmatchnet_torch.data import (
     read_cam_file,
     read_image,
     read_pfm,
+    save_image,
     save_pfm,
 )
 from tests.scene_utils import make_synthetic_scene as jax_make_synthetic_scene
@@ -90,6 +91,26 @@ def test_dataset_sample_matches_reference(scenes, idx):
     for key in ("intrinsics", "extrinsics", "depth_min", "depth_max"):
         np.testing.assert_array_equal(got[key], want[key])
     assert got["filename"] == want["filename"]
+
+
+@pytest.mark.parametrize("max_dim", [-1, 64])
+def test_dataset_sizes_a_source_of_another_size_like_reference(tmp_path, max_dim):
+    """A portrait source (view 1 stored transposed, 84x60) of a landscape
+    reference takes the reference's size with its intrinsics rescaled, as
+    the JAX dataset does (`patchmatchnet_tpu/data/mvs.py:164-169`), to the
+    bit; the port refused such a scan before (views must share a size)."""
+    root = str(tmp_path / "scene")
+    make_synthetic_scene(root, num_views=3, height=60, width=84, texture_scale=6.0)
+    path = os.path.join(root, "images", "00000001.png")
+    portrait = np.transpose(read_image(path), (1, 0, 2))
+    save_image(path, portrait)
+    got = MVSDataset(root, num_views=2, image_extension=".png", max_dim=max_dim)[0]
+    want = JaxMVSDataset(root, num_views=2, image_extension=".png", max_dim=max_dim)[0]
+    assert got["images"].shape == want["images"].shape
+    assert got["images"].shape[1:3] == ((60, 84) if max_dim < 0 else (45, 64))
+    np.testing.assert_array_equal(got["images"], want["images"])
+    for key in ("intrinsics", "extrinsics", "depth_min", "depth_max", "depth_gt"):
+        np.testing.assert_array_equal(got[key], want[key])
 
 
 @pytest.mark.parametrize("num_threads", [1, 3])

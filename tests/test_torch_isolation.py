@@ -60,7 +60,7 @@ def _script_imports(path):
 
 def test_port_imports_no_jax():
     """Neither the port (its bench and measurement tools, the trainer
-    comparison, gather tool, fusion, DTU protocol, command line, converter,
+    comparison, roofline, gather tool, fusion, DTU protocol, command line, converter,
     raw DTU dataset and profiling too) nor the scripts that drive
     it (chip_smoke.py and the profiling tool, including imports inside their
     functions) name or load a module of JAX, flax or the JAX package."""
@@ -68,6 +68,7 @@ def test_port_imports_no_jax():
     assert "patchmatchnet_torch/__main__.py" in PACKAGE_FILES
     assert "patchmatchnet_torch/bench.py" in PACKAGE_FILES
     assert "patchmatchnet_torch/dev/bf16_train_compare.py" in PACKAGE_FILES
+    assert "patchmatchnet_torch/dev/roofline.py" in PACKAGE_FILES
     named = set().union(*(_script_imports(p) for p in SCRIPTS + PACKAGE_FILES))
     assert not sorted(m for m in named if m.split(".")[0] in FORBIDDEN)
     modules = sorted(m for m in named if m.split(".")[0] == "patchmatchnet_torch")
@@ -79,7 +80,7 @@ def test_port_imports_no_jax():
         "import patchmatchnet_torch.dev.bench_gather, patchmatchnet_torch.bench\n"
         "import patchmatchnet_torch.dev.bench_dataset_configs\n"
         "import patchmatchnet_torch.dev.bf16_accuracy, patchmatchnet_torch.dev.bf16_scene_check\n"
-        "import patchmatchnet_torch.dev.bf16_train_compare\n"
+        "import patchmatchnet_torch.dev.bf16_train_compare, patchmatchnet_torch.dev.roofline\n"
         "import patchmatchnet_torch.geometry, patchmatchnet_torch.eval_protocols\n"
         "import patchmatchnet_torch.infer.fusion, patchmatchnet_torch.cli\n"
         "import patchmatchnet_torch.__main__, patchmatchnet_torch.compat.torch_convert\n"

@@ -80,3 +80,32 @@ def test_kernel_kind(name, kind):
 ])
 def test_hand_kernel_id(name, kid):
     assert trace.hand_kernel_id(name) == kid
+
+
+@pytest.mark.parametrize("name,group", [
+    ("void pmn::group_corr_tile_kernel<__nv_bfloat16, 64, 8, (pmn::Samples)1>(...)", "K6"),
+    ("void pmn::warp_corr_bwd_merge_kernel<__nv_bfloat16, 64, 8>(const T1 *)", "K4"),
+    ("sm90_xmma_fprop_implicit_gemm_bf16bf16_bf16f32", "convolutions"),
+    ("nvjet_hsh_64x32_64x16_1x2_h_bz_TNT", "convolutions"),
+    ("void at::native::vectorized_elementwise_kernel<4, FillFunctor<float>>", "glue"),
+    ("Memcpy HtoD (Pageable -> Device)", "glue"),
+])
+def test_trace_group(name, group):
+    assert trace.trace_group(name) == group
+
+
+def test_device_ms_by_group_sums_each_group_per_call(monkeypatch):
+    conv, k2 = "sm90_xmma_fprop_implicit_gemm", "void pmn::eval_grid_score_kernel<float, 8>()"
+    fill = "void at::native::vectorized_elementwise_kernel<4, FillFunctor<float>>"
+    events = [("kernel", conv, 0.0, 100.0), ("kernel", k2, 100.0, 40.0),
+              ("kernel", fill, 200.0, 20.0), ("kernel", conv, 300.0, 100.0),
+              ("kernel", k2, 400.0, 40.0), ("kernel", fill, 500.0, 20.0)]
+    calls = _fake_traces(monkeypatch, [events])
+    busy, groups = trace.device_ms_by_group(lambda: None, calls=2)
+    assert calls == [2]
+    assert busy == pytest.approx(0.16)
+    assert groups == pytest.approx({"convolutions": 0.1, "K2": 0.04, "glue": 0.02})
+    lost = events[:-1]
+    _fake_traces(monkeypatch, [lost, lost, lost])
+    with pytest.warns(UserWarning, match="not a multiple of 2"):
+        assert trace.device_ms_by_group(lambda: None, calls=2) is None
