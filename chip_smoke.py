@@ -6,7 +6,9 @@ reported on its own lines; any failure exits non-zero without the final
 result line:
 
 1. device: a CUDA device is required; prints `nvidia-smi` name/power limit.
-2. build: compiles `patchmatchnet_torch/csrc/*.cu` with nvcc (sm_90a).
+2. build: compiles `patchmatchnet_torch/csrc/*.cu` with nvcc (sm_90a) and
+   the host library `csrc/hostops.cpp` with g++ (`patchmatchnet_torch.native`,
+   which every image read and shrink of the later phases goes through).
 3. kernel parity: K1, K2, K3, K6 and K7 against their plain PyTorch
    versions on the card, at the main paths' stage shapes, with bf16 and
    f32 payloads; kernel and plain times (median of CUDA-event timings),
@@ -220,6 +222,19 @@ result line:
    wrong size, an empty PLY or other launches, and unless view 0's map
    equals DepthEstimator's in this process (max |diff| 0). Prints the
    phase's seconds.
+18. the host library (`patchmatchnet_torch.native`, built in phase 2):
+   its build seconds, the host CPU's model (lscpu) and count beside the
+   card; each function held equal to the bit to its numpy twin (u8 -> f32
+   and the shrink at ETH3D's 4032x6048x3 -> 1792x2688, u8 -> f32 at Tanks'
+   1080x1920x3, the 4-thread batch stretch of 7 views 900x1600 -> 896x1600,
+   the vertical flip) and timed against it in turns (median of HOST_REPS
+   each), `F.interpolate` (bilinear, half-pixel, no antialias; torch's
+   default threads) beside the resizes as the library yardstick, with its
+   max |diff|; bytes read and written and the bound at the host's copy
+   rate (torch `copy_` of 1 GiB); one ETH3D view (a 6048x4032 PNG read at
+   --image_max_dim 2688) end to end by section, decode, u8 -> f32 and
+   shrink, with the library and with the twins in turns, both equal to
+   `read_image`. One `host library:` JSON line. Prints the phase's seconds.
 
 The last line is {"ok": true, "device": {...}}; the line before it holds
 the per-kernel JSON summary.
@@ -406,6 +421,14 @@ PRESET_SOURCES = 6
 ETH3D_SENSOR_H, ETH3D_SENSOR_W, ETH3D_MAX_DIM = 4032, 6048, 2688
 TANKS_VIDEO_H, TANKS_VIDEO_W, TANKS_MAX_DIM = 1080, 1920, 2048
 PRESET_TIMEOUT = 400  # seconds, each preset's process
+# the host library (phase 18): runs of each function and its twin, in turns;
+# the batch stretch of run_tanks' 1 + 6 views read at --image_max_dim 1600
+# (1920x1080 -> 1600x900, stretched to 1600x896: round(112.5) is 112); the copy that gives the
+# host's memory rate (torch's copy_ on its default threads, 1 GiB, the
+# fastest of HOST_REPS)
+HOST_REPS = 5
+HOST_BATCH_VIEWS, HOST_BATCH_MAX_DIM = 7, 1600
+HOST_COPY_BYTES = 1 << 30
 
 
 def parity_tol(name: str, interval: float, size: int = 0):
@@ -3077,6 +3100,169 @@ def eval_presets_path(device, scratch, smi) -> None:
           f"run_tanks {tanks:.1f})", flush=True)
 
 
+def host_cpu() -> str:
+    """The host CPU's model name (lscpu; with its vendor, family and model
+    numbers where a virtual machine hides the name) and os.cpu_count()."""
+    try:
+        out = subprocess.run(["lscpu"], capture_output=True, text=True, check=True).stdout
+    except (OSError, subprocess.CalledProcessError) as e:
+        return f"lscpu failed ({e}), {os.cpu_count()} CPUs"
+    fields = dict(line.split(":", 1) for line in out.splitlines() if ":" in line)
+    fields = {key.strip(): value.strip() for key, value in fields.items()}
+    model = fields.get("Model name", "unknown")
+    if model == "unknown":
+        model += (f" ({fields.get('Vendor ID', '?')} family {fields.get('CPU family', '?')} "
+                  f"model {fields.get('Model', '?')})")
+    return f"{model}, {os.cpu_count()} CPUs"
+
+
+def host_turns(fns, reps: int = HOST_REPS):
+    """Median ms of each host function of `fns` (name -> fn), run in turns:
+    in order, then reversed, `reps` rounds (twin, lib, lib, twin, ...)."""
+    names = list(fns)
+    times = {name: [] for name in names}
+    for r in range(reps):
+        for name in names if r % 2 == 0 else names[::-1]:
+            start = time.perf_counter()
+            fns[name]()
+            times[name].append((time.perf_counter() - start) * 1e3)
+    return {name: statistics.median(t) for name, t in times.items()}
+
+
+def host_library_path(scratch, smi, host) -> None:
+    """Phase 18: the host library against its numpy twins at ETH3D's and
+    Tanks' sizes, `F.interpolate` beside the resizes, and one ETH3D view by
+    section (module docstring)."""
+    import numpy as np
+    import torch
+    import torch.nn.functional as F
+    from PIL import Image
+
+    from patchmatchnet_torch import native
+    from patchmatchnet_torch.data import read_image, scaled_dims
+
+    started = time.perf_counter()
+    tag = f"[{smi}; host {host}; torch threads {torch.get_num_threads()}]"
+    built = native.build_seconds()
+    print(f"host library {native.library_path().relative_to(REPO)}: "
+          + (f"built by g++ in {built:.2f} s (phase 2)" if built is not None else "reused")
+          + f" {tag}", flush=True)
+    src = torch.ones(HOST_COPY_BYTES // 4)  # written first: no page faults in the copies
+    dst = torch.zeros_like(src)
+    copies = []
+    for _ in range(2 + HOST_REPS):  # the first two wake torch's thread pool
+        start = time.perf_counter()
+        dst.copy_(src)
+        copies.append((time.perf_counter() - start) * 1e3)
+    copy_ms = min(copies[2:])  # the bound takes the fastest copy
+    rate = 2 * HOST_COPY_BYTES / (copy_ms * 1e-3)  # bytes read + written per second
+    del src, dst
+    print(f"host copy rate: {rate / 1e9:.3f} GB/s (torch copy_ of {HOST_COPY_BYTES >> 20} MiB, "
+          f"fastest of {HOST_REPS}: {copy_ms:.3f} ms; all "
+          + " ".join(f"{t:.3f}" for t in copies[2:]) + ")", flush=True)
+
+    def interpolate(images, out_h, out_w):  # [N, H, W, C] viewed as channels-last NCHW
+        t = torch.from_numpy(images).permute(0, 3, 1, 2)
+        return F.interpolate(t, size=(out_h, out_w), mode="bilinear", align_corners=False,
+                             antialias=False).permute(0, 2, 3, 1)
+
+    rng = np.random.default_rng(18)
+    rows = []
+
+    def case(name, shape, lib, twin, args, out_shape, yardstick=None):
+        got, want = lib(*args), twin(*args)
+        if got.shape != out_shape or not np.array_equal(got, want):
+            fail(f"host library {name} at {shape}: {got.shape} against {out_shape}, max |diff| "
+                 f"{np.abs(got.astype(np.float64) - want).max():.3e} (must be equal)")
+        fns = {"twin": lambda: twin(*args), "lib": lambda: lib(*args)}
+        row = {"name": name, "shape": shape, "max_abs_err": 0.0,
+               "bytes": int(sum(a.nbytes for a in args if isinstance(a, np.ndarray))
+                            + got.nbytes)}
+        if yardstick is not None:
+            fns["interpolate"] = lambda: yardstick(*args)
+            row["interpolate_max_abs_diff"] = float(np.abs(
+                yardstick(*args).numpy().reshape(got.shape) - got).max())
+        ms = host_turns(fns)
+        row.update({"lib_ms": ms["lib"], "twin_ms": ms["twin"],
+                    "interpolate_ms": ms.get("interpolate"),
+                    "bound_ms": row["bytes"] / rate * 1e3})
+        rows.append(row)
+        print(f"host {name} {shape}: lib {ms['lib']:.3f} ms, twin {ms['twin']:.3f} ms"
+              + (f", F.interpolate {ms['interpolate']:.3f} ms (max |diff| "
+                 f"{row['interpolate_max_abs_diff']:.3e})" if yardstick is not None else "")
+              + f"; equal to the twin; {row['bytes']} bytes, bound {row['bound_ms']:.3f} ms "
+              f"at the copy rate {tag}", flush=True)
+
+    out_h, out_w = scaled_dims(ETH3D_SENSOR_H, ETH3D_SENSOR_W, ETH3D_MAX_DIM)
+    levels = rng.integers(0, 256, (ETH3D_SENSOR_H, ETH3D_SENSOR_W, 3), dtype=np.uint8)
+    image = native.u8_to_f32_reference(levels)
+    case("u8_to_f32", f"ETH3D {ETH3D_SENSOR_H}x{ETH3D_SENSOR_W}x3", native.u8_to_f32,
+         native.u8_to_f32_reference, (levels,), levels.shape)
+    case("resize_bilinear", f"ETH3D {ETH3D_SENSOR_H}x{ETH3D_SENSOR_W}x3 -> {out_h}x{out_w}",
+         native.resize_bilinear, native.resize_bilinear_reference, (image, out_h, out_w),
+         (out_h, out_w, 3), lambda im, h, w: interpolate(im[None], h, w)[0])
+    del image
+    tanks = rng.integers(0, 256, (TANKS_VIDEO_H, TANKS_VIDEO_W, 3), dtype=np.uint8)
+    case("u8_to_f32", f"Tanks {TANKS_VIDEO_H}x{TANKS_VIDEO_W}x3", native.u8_to_f32,
+         native.u8_to_f32_reference, (tanks,), tanks.shape)
+    in_h, in_w = scaled_dims(TANKS_VIDEO_H, TANKS_VIDEO_W, HOST_BATCH_MAX_DIM)
+    new_h, new_w = int(round(in_h / 8)) * 8, int(round(in_w / 8)) * 8
+    views = native.u8_to_f32_reference(rng.integers(
+        0, 256, (HOST_BATCH_VIEWS, in_h, in_w, 3), dtype=np.uint8))
+    case("resize_bilinear_batch (4 threads)",
+         f"{HOST_BATCH_VIEWS} x {in_h}x{in_w}x3 -> {new_h}x{new_w}",
+         native.resize_bilinear_batch, native.resize_bilinear_batch_reference,
+         (views, new_h, new_w), (HOST_BATCH_VIEWS, new_h, new_w, 3), interpolate)
+    depth = rng.random((out_h, out_w, 1), dtype=np.float32)
+    flipped = np.empty_like(depth)
+    native.get_lib().flip_vertical_f32(depth, out_h, out_w, flipped)
+    if not np.array_equal(flipped, np.flipud(depth)):
+        fail("host library flip_vertical_f32 differs from np.flipud")
+    print(f"host flip_vertical_f32 {out_h}x{out_w}x1: equal to np.flipud (no path calls it)",
+          flush=True)
+
+    # one ETH3D view as the image path reads it: decode, u8 -> f32, shrink
+    root = os.path.join(scratch, "eth3d_view")
+    write_plane_scan(root, [(ETH3D_SENSOR_H, ETH3D_SENSOR_W, 0.0, 0.0)],
+                     CLI_EVAL_TEXTURE * ETH3D_MAX_DIM / CLI_EVAL_W)
+    path = os.path.join(root, "images", "00000000.png")
+    want = read_image(path, ETH3D_MAX_DIM)
+    sections = {side: {"decode": [], "u8_to_f32": [], "shrink": []} for side in ("twin", "lib")}
+    routes = {"twin": (native.u8_to_f32_reference, native.resize_bilinear_reference),
+              "lib": (native.u8_to_f32, native.resize_bilinear)}
+
+    def view(side):
+        convert, shrink = routes[side]
+        t0 = time.perf_counter()
+        with Image.open(path) as im:
+            raw = np.asarray(im)
+        t1 = time.perf_counter()
+        f = convert(raw)
+        t2 = time.perf_counter()
+        out = shrink(f, out_h, out_w)
+        t3 = time.perf_counter()
+        for key, seconds in zip(("decode", "u8_to_f32", "shrink"), (t1 - t0, t2 - t1, t3 - t2)):
+            sections[side][key].append(seconds * 1e3)
+        if not np.array_equal(out, want):
+            fail(f"ETH3D view through the {side} differs from read_image")
+
+    host_turns({"twin": lambda: view("twin"), "lib": lambda: view("lib")})
+    per_view = {side: {key: statistics.median(v) for key, v in secs.items()}
+                for side, secs in sections.items()}
+    for side in ("lib", "twin"):
+        p = per_view[side]
+        print(f"ETH3D view {ETH3D_SENSOR_W}x{ETH3D_SENSOR_H} PNG -> {out_w}x{out_h} through the "
+              f"{side}: decode {p['decode']:.3f} ms, u8_to_f32 {p['u8_to_f32']:.3f} ms, shrink "
+              f"{p['shrink']:.3f} ms, sum {sum(p.values()):.3f} ms (medians of {HOST_REPS}; "
+              f"equal to read_image) {tag}", flush=True)
+    print("host library: " + json.dumps({"card": smi, "host": host,
+                                         "torch_threads": torch.get_num_threads(),
+                                         "build_s": built, "copy_rate_gb_s": rate / 1e9,
+                                         "functions": rows, "eth3d_view_ms": per_view}),
+          flush=True)
+    print(f"host library phase: {time.perf_counter() - started:.1f} s", flush=True)
+
+
 def read_training_run(out: str, steps: int):
     """The train records of a CLI training run (metrics.jsonl), after
     checking its checkpoint set, a finite loss logged for each of its
@@ -3108,7 +3294,9 @@ def main() -> int:
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True, check=True,
     ).stdout.strip().splitlines()[0]
-    print(f"card: {smi}; torch {torch.__version__} cuda {torch.version.cuda}", flush=True)
+    host = host_cpu()
+    print(f"card: {smi}; host: {host}; torch {torch.__version__} cuda {torch.version.cuda}",
+          flush=True)
 
     phase("build")
     from patchmatchnet_torch.ops import cuda_build
@@ -3124,6 +3312,12 @@ def main() -> int:
         for line in log.read_text().splitlines():
             if any(k in line for k in ("Compiling entry function", "Used", "spill")):
                 print("  " + line.split(":", 1)[-1].strip(), flush=True)
+    from patchmatchnet_torch import native
+
+    native.get_lib()
+    built = native.build_seconds()
+    print(f"host library {native.library_path().relative_to(REPO)}: "
+          + (f"built by g++ in {built:.2f} s" if built is not None else "reused"), flush=True)
 
     phase("kernel parity (kernel vs plain version on the card)")
     summary = kernel_parity(device)
@@ -3234,6 +3428,14 @@ def main() -> int:
     scratch = tempfile.mkdtemp(prefix="smoke_presets_", dir=os.path.join(REPO, "build"))
     try:
         eval_presets_path(device, scratch, smi)
+    finally:
+        shutil.rmtree(scratch, ignore_errors=True)
+
+    phase("host library: patchmatchnet_torch.native against its numpy twins at ETH3D's "
+          "6048x4032 and Tanks' 1920x1080, F.interpolate beside it, one ETH3D view by section")
+    scratch = tempfile.mkdtemp(prefix="smoke_host_", dir=os.path.join(REPO, "build"))
+    try:
+        host_library_path(scratch, smi, host)
     finally:
         shutil.rmtree(scratch, ignore_errors=True)
 

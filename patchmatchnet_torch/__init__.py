@@ -35,6 +35,9 @@ Layout:
 - `train`: train/eval steps, Adam + MultiStep, checkpoints, the epoch
   driver `run_training` (configured by `config.Config`), `build_model` and
   `load_any_checkpoint`.
+- `native`: the host library (`csrc/hostops.cpp`, built by g++ at first
+  use): the image shrink, the threaded batch stretch and u8 -> f32 of the
+  image path, each with a numpy twin.
 - `data`: file codecs (images, cams, pairs, PFM and COLMAP .bin maps, PLY),
   the MVS scene dataset and batch loader, `data.dtu_legacy` (the raw DTU
   training layout), and a synthetic scene with known depth.

@@ -1,7 +1,8 @@
 """File codecs of the unified MVS layout on numpy + PIL: images, `*_cam.txt`,
 `pair.txt`, PFM and COLMAP `.bin` maps and binary PLY point clouds, in the
 formats `patchmatchnet_tpu/dataio` reads and writes (MVSNet/PatchmatchNet
-convention), and the shrink of images and maps to a longest side."""
+convention), and the shrink of images and maps to a longest side (through
+the port's host library, `patchmatchnet_torch.native`)."""
 
 from __future__ import annotations
 
@@ -11,31 +12,7 @@ from typing import Dict, List, Sequence, Tuple
 import numpy as np
 from PIL import Image
 
-
-def _resize_axis(size: int, out: int) -> Tuple[np.ndarray, np.ndarray, np.ndarray]:
-    """Source indices (i0, i1) and f32 weights of one axis: half-pixel
-    centres in f64, clamped to the image, truncated to the lower index."""
-    s = (np.arange(out, dtype=np.float64) + 0.5) * (size / out) - 0.5
-    s = np.clip(s, 0.0, size - 1.0)
-    i0 = s.astype(np.int64)
-    return i0, np.minimum(i0 + 1, size - 1), (s - i0).astype(np.float32)
-
-
-def resize_images(images: np.ndarray, height: int, width: int) -> np.ndarray:
-    """[N, H, W, C] float32 -> [N, height, width, C], bilinear with
-    half-pixel centers (cv2.INTER_LINEAR convention), in the arithmetic of
-    the JAX package's native resize (`native/hostops.cpp`
-    `resize_bilinear_f32`), to the bit: f64 source coordinates, f32 weights,
-    and in f32 `top = p00 + (p01 - p00) * fx`, the same below, then
-    `top + (bot - top) * fy`."""
-    images = np.asarray(images, np.float32)
-    y0, y1, fy = _resize_axis(images.shape[1], height)
-    x0, x1, fx = _resize_axis(images.shape[2], width)
-    fx, fy = fx[None, None, :, None], fy[None, :, None, None]
-    rows0, rows1 = images[:, y0], images[:, y1]
-    top = rows0[:, :, x0] + (rows0[:, :, x1] - rows0[:, :, x0]) * fx
-    bot = rows1[:, :, x0] + (rows1[:, :, x1] - rows1[:, :, x0]) * fx
-    return top + (bot - top) * fy
+from patchmatchnet_torch import native
 
 
 def resize_bilinear_image(image: np.ndarray, height: int, width: int) -> np.ndarray:
@@ -74,19 +51,19 @@ def scale_to_max_dim(image: np.ndarray, max_dim: int) -> Tuple[np.ndarray, int, 
     height, width = image.shape[:2]
     new_h, new_w = scaled_dims(height, width, max_dim)
     if (new_h, new_w) != (height, width):
-        image = resize_images(image[None], new_h, new_w)[0]
+        image = native.resize_bilinear(image, new_h, new_w)
     return image, height, width
 
 
 def read_image(path: str, max_dim: int = -1, rgb: bool = True) -> np.ndarray:
     """Image as [H, W, 3] float32 in [0, 1] (grey images repeated to RGB;
     kept [H, W] with `rgb=False`, as the JAX package reads them), shrunk so
-    max(H, W) <= max_dim. 8-bit levels decode as x * f32(1/255), the JAX
-    package's native decode, to the bit."""
+    max(H, W) <= max_dim. 8-bit levels decode as x * f32(1/255)
+    (`native.u8_to_f32`), as the JAX package's host library decodes them."""
     with Image.open(path) as im:
         raw = np.asarray(im)
     if raw.dtype == np.uint8:
-        image = raw.astype(np.float32) * np.float32(1 / 255)
+        image = native.u8_to_f32(raw)
     else:
         image = raw.astype(np.float32) / np.float32(255)
     if image.ndim == 2:

@@ -30,13 +30,13 @@ from typing import Any, Dict, Iterator, List, Optional, Sequence, Tuple
 
 import numpy as np
 
+from patchmatchnet_torch import native
 from patchmatchnet_torch.data.codecs import (
     read_cam_file,
     read_image,
     read_pair_file,
     read_pfm,
     resize_bilinear_image,
-    resize_images,
     scale_to_max_dim,
 )
 from patchmatchnet_torch.parallel.mesh import rank_rows
@@ -51,7 +51,7 @@ def adjust_sample_dims(sample: Dict[str, Any]) -> Dict[str, Any]:
     new_h, new_w = int(round(height / 8)) * 8, int(round(width / 8)) * 8
     out = dict(sample, orig_height=height, orig_width=width)
     if (new_h, new_w) != (height, width):
-        out["images"] = resize_images(sample["images"], new_h, new_w)
+        out["images"] = native.resize_bilinear_batch(sample["images"], new_h, new_w)
         intrinsics = sample["intrinsics"].copy()
         intrinsics[:, 0] *= new_w / width
         intrinsics[:, 1] *= new_h / height

@@ -48,7 +48,9 @@ class DepthEstimator:
         self.bucket_multiple = bucket_multiple
 
     def _tensor(self, x: Any) -> torch.Tensor:
-        return torch.as_tensor(np.asarray(x)).to(self.device, non_blocking=True)
+        # in C order: convolutions and matmuls pick their kernels by memory
+        # layout, so a batch's values give the same maps whatever its strides
+        return torch.as_tensor(np.asarray(x)).contiguous().to(self.device, non_blocking=True)
 
     @torch.inference_mode()
     def __call__(self, batch: Dict[str, Any],

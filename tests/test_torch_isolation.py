@@ -1,8 +1,10 @@
-"""The port stands alone: it imports no JAX, its wrappers take the plain
-versions only for CPU tensors, and asking for CUDA without CUDA raises."""
+"""The port stands alone: it imports no JAX, builds its own host library,
+its wrappers take the plain versions only for CPU tensors, and asking for
+CUDA without CUDA raises."""
 
 import ast
 import os
+import pathlib
 import shutil
 import subprocess
 import sys
@@ -69,6 +71,7 @@ def test_port_imports_no_jax():
     assert "patchmatchnet_torch/bench.py" in PACKAGE_FILES
     assert "patchmatchnet_torch/dev/bf16_train_compare.py" in PACKAGE_FILES
     assert "patchmatchnet_torch/dev/roofline.py" in PACKAGE_FILES
+    assert "patchmatchnet_torch/native.py" in PACKAGE_FILES
     named = set().union(*(_script_imports(p) for p in SCRIPTS + PACKAGE_FILES))
     assert not sorted(m for m in named if m.split(".")[0] in FORBIDDEN)
     modules = sorted(m for m in named if m.split(".")[0] == "patchmatchnet_torch")
@@ -85,6 +88,7 @@ def test_port_imports_no_jax():
         "import patchmatchnet_torch.infer.fusion, patchmatchnet_torch.cli\n"
         "import patchmatchnet_torch.__main__, patchmatchnet_torch.compat.torch_convert\n"
         "import patchmatchnet_torch.data.dtu_legacy, patchmatchnet_torch.utils.profiling\n"
+        "import patchmatchnet_torch.native\n"
         f"for m in {modules!r}:\n"
         "    importlib.import_module(m)\n"
         "import chip_smoke\n"
@@ -236,3 +240,51 @@ def test_f32_forward_turns_tf32_off_and_restores_it():
         assert torch.backends.cudnn.allow_tf32 and torch.backends.cuda.matmul.allow_tf32
     finally:
         torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32 = prev
+
+
+def test_host_library_is_the_ports_own(tmp_path, monkeypatch):
+    """No file of the port (its C++ and CUDA sources too) nor chip_smoke.py
+    names the JAX package's `native/` directory, and only
+    `patchmatchnet_torch/native.py` names `libhostops.so`, which it builds
+    under `build/hostops/` from `patchmatchnet_torch/csrc/hostops.cpp`, the
+    one file its build reads (shown in a copy of the module and its source,
+    in a tree without the repo's `native/`)."""
+    import importlib.util
+    import re
+
+    from patchmatchnet_torch import native
+
+    sources = [os.path.relpath(p, REPO) for p in sorted((native.SOURCE.parent).iterdir())
+               if p.suffix in (".cpp", ".cu", ".cuh")]
+    assert "patchmatchnet_torch/csrc/hostops.cpp" in sources
+    for path in SCRIPTS + PACKAGE_FILES + sources:
+        with open(os.path.join(REPO, path)) as f:
+            text = f.read()
+        assert not re.search(r"(?<![\w.])native[/\\]", text), path
+        if path != "patchmatchnet_torch/native.py":
+            assert "libhostops" not in text, path
+    assert native.SOURCE == pathlib.Path(REPO, "patchmatchnet_torch", "csrc", "hostops.cpp")
+    assert native.library_path().is_relative_to(pathlib.Path(REPO, "build", "hostops"))
+
+    pkg = tmp_path / "patchmatchnet_torch"
+    (pkg / "csrc").mkdir(parents=True)
+    shutil.copy(native.__file__, pkg / "native.py")
+    shutil.copy(native.SOURCE, pkg / "csrc" / "hostops.cpp")
+    spec = importlib.util.spec_from_file_location("hostops_copy", pkg / "native.py")
+    copy = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(copy)
+    commands = []
+    run = subprocess.run
+
+    def recording_run(argv, *args, **kwargs):
+        commands.append(list(argv))
+        return run(argv, *args, **kwargs)
+
+    monkeypatch.setattr(subprocess, "run", recording_run)
+    assert copy.get_lib().hostops_version() == 1
+    assert len(commands) == 1
+    argv = commands[0]
+    inputs = [a for i, a in enumerate(argv[1:], 1)
+              if not a.startswith("-") and argv[i - 1] != "-o"]
+    assert inputs == [str(pkg / "csrc" / "hostops.cpp")]
+    assert copy.library_path().is_relative_to(tmp_path / "build" / "hostops")

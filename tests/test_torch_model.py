@@ -31,7 +31,14 @@ from patchmatchnet_tpu.models import PatchmatchNet as JaxPatchmatchNet
 from patchmatchnet_tpu.models import net as jax_net
 from patchmatchnet_tpu.models.patchmatch import _fixed_offsets
 from patchmatchnet_torch.compat import read_flax_msgpack, state_dict_from_jax
-from patchmatchnet_torch.data import PLANE_Z, BatchLoader, MVSDataset, make_synthetic_scene, read_pfm
+from patchmatchnet_torch.data import (
+    PLANE_Z,
+    BatchLoader,
+    MVSDataset,
+    make_synthetic_scene,
+    plane_batch,
+    read_pfm,
+)
 from patchmatchnet_torch.infer import DepthEstimator, save_depth_maps
 from patchmatchnet_torch.models import PatchmatchNet
 from patchmatchnet_torch.models.patchmatch import (
@@ -224,6 +231,25 @@ def test_depth_estimator_bucket_padding(tmp_path, state_dict):
             torch.from_numpy(batch["depth_max"]), init_noise=noise)
     np.testing.assert_array_equal(depth, want_d.numpy()[:, :, :72])
     np.testing.assert_array_equal(conf, want_c.numpy()[:, :, :72])
+
+
+@pytest.mark.parametrize("dtype", [None, torch.bfloat16])
+def test_depth_estimator_output_independent_of_image_layout(state_dict, dtype):
+    """The same image values in C order and in the W-major order the numpy
+    shrink used to return (strides (.., 12, W*12, 4) for [N, H, W, 3]) give
+    the same maps to the bit: the estimator hands the model C-ordered
+    tensors, as the JAX estimator's arrays have no layout."""
+    batch = {k: np.asarray(v) for k, v in plane_batch(1, 3, 64, 80).items()}
+    images = np.asarray(batch["images"], np.float32)
+    w_major = np.ascontiguousarray(images.transpose(0, 1, 3, 2, 4)).transpose(0, 1, 3, 2, 4)
+    assert np.array_equal(images, w_major) and not w_major.flags["C_CONTIGUOUS"]
+    model = PatchmatchNet(compute_dtype=dtype)
+    model.load_state_dict(state_dict, strict=True)
+    estimator = DepthEstimator(model, device="cpu")
+    got = estimator(dict(batch, images=w_major), torch.Generator().manual_seed(0))
+    want = estimator(dict(batch, images=images), torch.Generator().manual_seed(0))
+    np.testing.assert_array_equal(got[0], want[0])
+    np.testing.assert_array_equal(got[1], want[1])
 
 
 @pytest.mark.parametrize("h,w", [(60, 84), (198, 52)])
