@@ -44,7 +44,8 @@ Layout:
 - `tools`: the host tools (COLMAP import and export, the DTU and ETH3D
   converters, the point-cloud viewer), writing the JAX tools' files.
 - `utils`: depth metrics, the JSONL/TensorBoard metrics logger,
-  `utils.profiling` (`torch_trace`, `PhaseTimer`) and device-trace helpers.
+  `utils.profiling` (`torch_trace`, `PhaseTimer`, the program's spans) and
+  device-trace helpers.
 """
 
 __version__ = "0.1.0"

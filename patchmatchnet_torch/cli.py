@@ -53,6 +53,7 @@ from patchmatchnet_torch.tools import (
     visualize,
 )
 from patchmatchnet_torch.train.driver import build_model, load_any_checkpoint, run_training
+from patchmatchnet_torch.utils.profiling import reset_spans, span_records, trace_spans
 
 # Options of the JAX command line that the port has not yet, and the
 # ROADMAP item that brings each.
@@ -242,7 +243,7 @@ def _write_depth_maps(group: Optional[Group], args: argparse.Namespace
                       ) -> Tuple[int, List[float]]:
     """The depth and confidence maps of eval: all of them, or with `group`
     those of the rank's rows of each global batch. Returns (maps written,
-    host ms per request)."""
+    host ms per request, from the `pmn.request` spans)."""
     device = torch.device(args.device) if group is None else group.device
     if args.input_type == "module":
         with open(args.checkpoint_path, "rb") as f:
@@ -255,10 +256,14 @@ def _write_depth_maps(group: Optional[Group], args: argparse.Namespace
                          max_dim=args.image_max_dim, scan_list=args.scan_list,
                          num_light_idx=args.num_light_idx)
     shard = None if group is None else (group.rank, group.world_size)
-    request_ms: List[float] = []
-    n = save_depth_maps(estimator, BatchLoader(dataset, args.batch_size, shard=shard),
-                        args.output_folder, args.file_format, seed=args.seed,
-                        request_ms=request_ms)
+    previous = trace_spans(True)
+    reset_spans()
+    try:
+        n = save_depth_maps(estimator, BatchLoader(dataset, args.batch_size, shard=shard),
+                            args.output_folder, args.file_format, seed=args.seed)
+        request_ms = [r.host_ms for r in span_records("pmn.request")]
+    finally:
+        trace_spans(previous)
     return n, request_ms
 
 

@@ -70,6 +70,7 @@ from patchmatchnet_torch.ops import cuda_build
 from patchmatchnet_torch.parallel import launch, replicate, shard_batch
 from patchmatchnet_torch.train import batch_to_device, make_optimizer, train_step
 from patchmatchnet_torch.train.driver import load_model_weights
+from patchmatchnet_torch.utils.profiling import reset_spans, span_records, trace_spans
 from patchmatchnet_torch.utils.trace import busy_union_us, trace_device_events
 
 REPO = os.path.dirname(os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
@@ -229,7 +230,7 @@ def eval_rank(group, scene: str, out_root: str, batch_size: int, refs_list,
     every global batch of `batch_size`, for each reference count of
     `refs_list` (with `warm_up`, a pass of one global batch before), over
     `scene` or the scans of `scan_list` under it: {refs: (maps written,
-    host ms per request, launches, seconds)}."""
+    host ms per request (its `pmn.request` spans), launches, seconds)}."""
     model = PatchmatchNet(compute_dtype=torch.bfloat16)
     load_model_weights(model, CKPT)
     estimator = DepthEstimator(model, group.device)
@@ -239,11 +240,17 @@ def eval_rank(group, scene: str, out_root: str, batch_size: int, refs_list,
         dataset.metas = dataset.metas[:refs]
         loader = BatchLoader(dataset, batch_size, shard=(group.rank, group.world_size))
         cuda_build.reset_launch_counts()
-        request_ms: List[float] = []
+        previous = trace_spans(True)
+        reset_spans()
         start = time.perf_counter()
-        n = save_depth_maps(estimator, loader, os.path.join(out_root, f"refs{refs}"), seed=0,
-                            request_ms=request_ms)
-        runs[refs] = (n, request_ms, cuda_build.launch_counts(), time.perf_counter() - start)
+        try:
+            n = save_depth_maps(estimator, loader, os.path.join(out_root, f"refs{refs}"),
+                                seed=0)
+        finally:
+            trace_spans(previous)
+        seconds = time.perf_counter() - start
+        request_ms = [r.host_ms for r in span_records("pmn.request")]
+        runs[refs] = (n, request_ms, cuda_build.launch_counts(), seconds)
     return runs
 
 

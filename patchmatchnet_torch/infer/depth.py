@@ -13,8 +13,7 @@ source features directly, so no sample can leave a window.
 from __future__ import annotations
 
 import os
-import time
-from typing import Any, Dict, Iterable, List, Optional, Tuple, Union
+from typing import Any, Dict, Iterable, Tuple, Union
 
 import numpy as np
 import torch
@@ -24,6 +23,7 @@ from patchmatchnet_torch.data.codecs import save_map
 from patchmatchnet_torch.models.net import PatchmatchNet
 from patchmatchnet_torch.models.patchmatch import INITIAL_NUM_SAMPLES
 from patchmatchnet_torch.ops.resize import resize_bilinear_maps, resize_nearest_maps
+from patchmatchnet_torch.utils.profiling import span
 
 
 class DepthEstimator:
@@ -61,33 +61,44 @@ class DepthEstimator:
         `generator` (on this estimator's device) draws the stage-3 noise.
         Returns (depth [B, Ho, Wo], confidence [B, Ho, Wo]) as numpy arrays at
         the original resolution."""
-        images = np.asarray(batch["images"], np.float32)
-        b, _, h0, w0 = images.shape[:4]
-        if self.bucket_multiple:
-            m = self.bucket_multiple
-            hb, wb = -(-h0 // m) * m, -(-w0 // m) * m
-            images = np.pad(images, ((0, 0), (0, 0), (0, hb - h0), (0, wb - w0), (0, 0)),
-                            mode="edge")
-        h, w = images.shape[2:4]
-        # the noise of the whole global batch, of which a rank's batch
-        # (`BatchLoader(shard=...)`) takes its rows
-        start, rows = batch.get("rows", (0, b))
-        noise = torch.rand((rows, INITIAL_NUM_SAMPLES, h // 8, w // 8),
-                           generator=generator, device=self.device)[start:start + b]
-        depth, confidence = self._forward(
-            self._tensor(images),
-            self._tensor(batch["intrinsics"]).float(),
-            self._tensor(batch["extrinsics"]).float(),
-            self._tensor(batch["depth_min"]).float().reshape(b),
-            self._tensor(batch["depth_max"]).float().reshape(b),
-            noise,
-        )
-        depth, confidence = depth[:, :h0, :w0], confidence[:, :h0, :w0]
-        orig_h = int(np.asarray(batch.get("orig_height", h0)).reshape(-1)[0])
-        orig_w = int(np.asarray(batch.get("orig_width", w0)).reshape(-1)[0])
-        depth = resize_bilinear_maps(depth, orig_h, orig_w)
-        confidence = resize_nearest_maps(confidence, orig_h, orig_w)
-        return depth.cpu().numpy(), confidence.cpu().numpy()
+        with span("pmn.request"):
+            with span("pmn.request.prepare"):
+                images = np.asarray(batch["images"], np.float32)
+                b, _, h0, w0 = images.shape[:4]
+                if self.bucket_multiple:
+                    m = self.bucket_multiple
+                    hb, wb = -(-h0 // m) * m, -(-w0 // m) * m
+                    images = np.pad(images, ((0, 0), (0, 0), (0, hb - h0), (0, wb - w0), (0, 0)),
+                                    mode="edge")
+                h, w = images.shape[2:4]
+                # the noise of the whole global batch, of which a rank's batch
+                # (`BatchLoader(shard=...)`) takes its rows
+                start, rows = batch.get("rows", (0, b))
+                noise = torch.rand((rows, INITIAL_NUM_SAMPLES, h // 8, w // 8),
+                                   generator=generator, device=self.device)[start:start + b]
+            with span("pmn.request.copy_in") as copy_in:
+                copied = [self._tensor(x) for x in (images, batch["intrinsics"],
+                                                    batch["extrinsics"], batch["depth_min"],
+                                                    batch["depth_max"])]
+                copy_in.add(bytes=sum(t.nbytes for t in copied))
+                images, intrinsics, extrinsics, depth_min, depth_max = copied
+            with span("pmn.request.forward"):
+                depth, confidence = self._forward(
+                    images, intrinsics.float(), extrinsics.float(),
+                    depth_min.float().reshape(b), depth_max.float().reshape(b), noise)
+            with span("pmn.request.resize"):
+                depth, confidence = depth[:, :h0, :w0], confidence[:, :h0, :w0]
+                orig_h = int(np.asarray(batch.get("orig_height", h0)).reshape(-1)[0])
+                orig_w = int(np.asarray(batch.get("orig_width", w0)).reshape(-1)[0])
+                depth = resize_bilinear_maps(depth, orig_h, orig_w)
+                confidence = resize_nearest_maps(confidence, orig_h, orig_w)
+            with span("pmn.request.wait"):
+                if self.device.type == "cuda":
+                    torch.cuda.current_stream(self.device).synchronize()
+            with span("pmn.request.copy_out") as copy_out:
+                out = depth.cpu().numpy(), confidence.cpu().numpy()
+                copy_out.add(bytes=out[0].nbytes + out[1].nbytes)
+        return out
 
     def _forward(self, images, intrinsics, extrinsics, depth_min, depth_max, noise):
         depth, confidence, _ = self.model(images, intrinsics, extrinsics, depth_min,
@@ -129,7 +140,6 @@ def save_depth_maps(
     output_folder: str,
     file_format: str = ".pfm",
     seed: int = 0,
-    request_ms: Optional[List[float]] = None,
 ) -> int:
     """Run inference over a loader and write depth_est/ + confidence/ maps in
     `file_format` (.pfm or COLMAP .bin), named as the reference names them
@@ -137,17 +147,13 @@ def save_depth_maps(
     torch.Generator seeded with `seed`; under data parallel each rank's
     loader holds its rows of every global batch (`BatchLoader(shard=...)`),
     draws each global batch's noise from its own generator of that seed
-    and writes the maps of its own views. With `request_ms`, appends each
-    estimator call's host milliseconds to it (the call returns host
-    arrays, so its device work is done). Returns the number of maps
+    and writes the maps of its own views. Each estimator call is a
+    `pmn.request` span (`utils.profiling`). Returns the number of maps
     written (by this rank)."""
     generator = torch.Generator(device=estimator.device).manual_seed(seed)
     count = 0
     for batch in loader:
-        start = time.perf_counter()
         depth, confidence = estimator(batch, generator)
-        if request_ms is not None:
-            request_ms.append((time.perf_counter() - start) * 1e3)
         for filename, d, c in zip(batch["filename"], depth, confidence):
             for folder, value in (("depth_est", d), ("confidence", c)):
                 save_map(os.path.join(output_folder, filename.format(folder, file_format)),

@@ -35,6 +35,9 @@ from patchmatchnet_torch.models.feature import FeatureNet
 from patchmatchnet_torch.models.patchmatch import INITIAL_NUM_SAMPLES, PatchMatch, stage_configs
 from patchmatchnet_torch.models.refinement import Refinement
 from patchmatchnet_torch.ops.resize import upsample_nearest_x2
+from patchmatchnet_torch.utils.profiling import span
+
+STAGE_SPANS = {stage: f"pmn.stage{stage}" for stage in (3, 2, 1)}
 
 
 @contextlib.contextmanager
@@ -114,20 +117,21 @@ class PatchmatchNet(nn.Module):
         # of N views [B, h, w, C] per stage.
         features: Dict[int, List[torch.Tensor]] = {s: [] for s in (1, 2, 3)}
         src_stacks: Dict[int, torch.Tensor] = {}  # [B, N-1, h, w, C] for K6
-        if self.training:
-            # one call per view: per-view batch statistics (reference:
-            # net.py:120-123)
-            for v in range(n):
-                view = images[:, v].contiguous().permute(0, 3, 1, 2)
-                for s, f in self.feature(view).items():
-                    features[s].append(f.permute(0, 2, 3, 1).contiguous())
-        else:
-            # running statistics: all views in one batch
-            nchw = images.reshape(b * n, h, w, 3).permute(0, 3, 1, 2)
-            for s, f in self.feature(nchw).items():
-                f = f.permute(0, 2, 3, 1).reshape(b, n, *f.shape[2:], f.shape[1])
-                features[s] = [f[:, v].contiguous() for v in range(n)]
-                src_stacks[s] = f[:, 1:].contiguous()  # no copy when B = 1
+        with span("pmn.features"):
+            if self.training:
+                # one call per view: per-view batch statistics (reference:
+                # net.py:120-123)
+                for v in range(n):
+                    view = images[:, v].contiguous().permute(0, 3, 1, 2)
+                    for s, f in self.feature(view).items():
+                        features[s].append(f.permute(0, 2, 3, 1).contiguous())
+            else:
+                # running statistics: all views in one batch
+                nchw = images.reshape(b * n, h, w, 3).permute(0, 3, 1, 2)
+                for s, f in self.feature(nchw).items():
+                    f = f.permute(0, 2, 3, 1).reshape(b, n, *f.shape[2:], f.shape[1])
+                    features[s] = [f[:, v].contiguous() for v in range(n)]
+                    src_stacks[s] = f[:, 1:].contiguous()  # no copy when B = 1
 
         # Step 2: per-stage projection matrices (K scaled per level).
         projs: Dict[int, torch.Tensor] = {}
@@ -143,32 +147,36 @@ class PatchmatchNet(nn.Module):
         depth = view_weights = score = None
         depth_patchmatch: Dict[int, List[torch.Tensor]] = {}
         for stage in (3, 2, 1):
-            feats = features[stage]
-            depths, score, view_weights = getattr(self, f"patchmatch_{stage}")(
-                ref_feature=feats[0],
-                src_features=feats[1:],
-                ref_proj=projs[stage][:, 0],
-                src_projs=[projs[stage][:, v] for v in range(1, n)],
-                depth_min=depth_min,
-                depth_max=depth_max,
-                depth=depth,
-                view_weights=view_weights,
-                init_noise=init_noise if stage == 3 else None,
-                src_stack=src_stacks.get(stage),
-            )
-            depth_patchmatch[stage] = depths
-            depth = depths[-1].detach()  # no gradient between stages
-            if stage > 1:
-                depth = upsample_nearest_x2(depth[:, None])[:, 0]
-                view_weights = upsample_nearest_x2(view_weights)
+            with span(STAGE_SPANS[stage]):
+                feats = features[stage]
+                depths, score, view_weights = getattr(self, f"patchmatch_{stage}")(
+                    ref_feature=feats[0],
+                    src_features=feats[1:],
+                    ref_proj=projs[stage][:, 0],
+                    src_projs=[projs[stage][:, v] for v in range(1, n)],
+                    depth_min=depth_min,
+                    depth_max=depth_max,
+                    depth=depth,
+                    view_weights=view_weights,
+                    init_noise=init_noise if stage == 3 else None,
+                    src_stack=src_stacks.get(stage),
+                )
+                depth_patchmatch[stage] = depths
+                depth = depths[-1].detach()  # no gradient between stages
+                if stage > 1:
+                    depth = upsample_nearest_x2(depth[:, None])[:, 0]
+                    view_weights = upsample_nearest_x2(view_weights)
 
         # Step 3: refinement to full resolution.
-        depth = self.upsample_net(images[:, 0].permute(0, 3, 1, 2), depth,
-                                  depth_min, depth_max)
+        with span("pmn.refine"):
+            depth = self.upsample_net(images[:, 0].permute(0, 3, 1, 2), depth,
+                                      depth_min, depth_max)
         depth_patchmatch[0] = [depth]
         if self.training:
             return depth, torch.zeros_like(depth), depth_patchmatch
-        return depth, self._confidence(score), depth_patchmatch
+        with span("pmn.confidence"):
+            confidence = self._confidence(score)
+        return depth, confidence, depth_patchmatch
 
     def _confidence(self, score: torch.Tensor) -> torch.Tensor:
         """Probability mass of the 4 hypotheses around the regressed index of

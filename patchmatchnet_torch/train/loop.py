@@ -14,6 +14,9 @@ each rank backpropagates world size x its share, so DDP's gradient average
 is the gradient of the global batch's loss, as in the JAX package's
 sharded step; the returned loss and metrics are the global ones.
 
+A step is the span `pmn.step`, with `pmn.step.forward`, `.loss`,
+`.backward`, `.optimizer` and `.metrics` under it (`utils.profiling`).
+
 Checkpoints are `torch.save` files {epoch, step, model, optimizer};
 `load_train_checkpoint` also resumes from the reference's
 `params_*.ckpt.msgpack` (through `compat.train_state_from_jax`).
@@ -34,6 +37,7 @@ from patchmatchnet_torch.compat import read_flax_msgpack, train_state_from_jax
 from patchmatchnet_torch.models.net import PatchmatchNet, full_f32, patchmatchnet_loss
 from patchmatchnet_torch.ops.resize import downsample_nearest
 from patchmatchnet_torch.utils.metrics import absolute_depth_error, threshold_error
+from patchmatchnet_torch.utils.profiling import span
 
 BATCH_KEYS = ("images", "intrinsics", "extrinsics", "depth_min", "depth_max",
               "depth_gt", "mask")
@@ -114,39 +118,44 @@ def train_step(model: torch.nn.Module, optimizer: torch.optim.Optimizer,
     of the global batch, and the metrics are reduced over the group (one
     all-reduce: the loss summed, the per-image means averaged over equal
     shares)."""
-    world = 1 if group is None else dist.get_world_size(group)
-    model.train()
-    gts, masks = build_stage_pyramid(batch["depth_gt"], batch["mask"])
-    optimizer.zero_grad(set_to_none=True)
-    with _precision(model):
-        _, _, dp = model(batch["images"], batch["intrinsics"], batch["extrinsics"],
-                         batch["depth_min"], batch["depth_max"], init_noise=init_noise)
-        loss = patchmatchnet_loss(dp, gts, masks, group)
-        (loss * world if world > 1 else loss).backward()
-    grads = ({name: p.grad.detach().clone() for name, p in _unwrap(model).named_parameters()
-              if p.grad is not None} if with_grads else None)
-    for param_group in optimizer.param_groups:
-        param_group["lr"] = lr
-    optimizer.step()
-    with torch.no_grad():
-        dp = {s: [d.detach() for d in v] for s, v in dp.items()}
-        metrics: Dict[str, Any] = {"loss": loss.detach(), **_compute_metrics(dp, gts, masks)}
-        if group is not None:
-            packed = torch.stack(list(metrics.values()))
-            dist.all_reduce(packed, group=group)
-            metrics = {k: v if k == "loss" else v / world
-                       for k, v in zip(metrics, packed)}
-        if grads is not None:
-            metrics["grads"] = grads
-        m0 = masks[0].float()
-        images = {
-            "ref-image": batch["images"][:, 0],
-            "depth-gt-stage-0": gts[0] * m0,
-            "depth-refined-stage-0": dp[0][-1] * m0,
-            "error-map-stage-0": (dp[0][-1] - gts[0]).abs() * m0,
-        }
-        for i in (1, 2, 3):
-            images[f"depth-stage-{i}"] = dp[i][-1] * masks[i].float()
+    with span("pmn.step"):
+        world = 1 if group is None else dist.get_world_size(group)
+        model.train()
+        gts, masks = build_stage_pyramid(batch["depth_gt"], batch["mask"])
+        optimizer.zero_grad(set_to_none=True)
+        with _precision(model):
+            with span("pmn.step.forward"):
+                _, _, dp = model(batch["images"], batch["intrinsics"], batch["extrinsics"],
+                                 batch["depth_min"], batch["depth_max"], init_noise=init_noise)
+            with span("pmn.step.loss"):
+                loss = patchmatchnet_loss(dp, gts, masks, group)
+            with span("pmn.step.backward"):
+                (loss * world if world > 1 else loss).backward()
+        grads = ({name: p.grad.detach().clone() for name, p in _unwrap(model).named_parameters()
+                  if p.grad is not None} if with_grads else None)
+        with span("pmn.step.optimizer"):
+            for param_group in optimizer.param_groups:
+                param_group["lr"] = lr
+            optimizer.step()
+        with span("pmn.step.metrics"), torch.no_grad():
+            dp = {s: [d.detach() for d in v] for s, v in dp.items()}
+            metrics: Dict[str, Any] = {"loss": loss.detach(), **_compute_metrics(dp, gts, masks)}
+            if group is not None:
+                packed = torch.stack(list(metrics.values()))
+                dist.all_reduce(packed, group=group)
+                metrics = {k: v if k == "loss" else v / world
+                           for k, v in zip(metrics, packed)}
+            if grads is not None:
+                metrics["grads"] = grads
+            m0 = masks[0].float()
+            images = {
+                "ref-image": batch["images"][:, 0],
+                "depth-gt-stage-0": gts[0] * m0,
+                "depth-refined-stage-0": dp[0][-1] * m0,
+                "error-map-stage-0": (dp[0][-1] - gts[0]).abs() * m0,
+            }
+            for i in (1, 2, 3):
+                images[f"depth-stage-{i}"] = dp[i][-1] * masks[i].float()
     return metrics, images
 
 

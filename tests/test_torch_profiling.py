@@ -22,8 +22,6 @@ def test_phase_timer_accumulates_per_phase():
     assert timer.count == {"data": 3, "step": 1}
     assert timer.mean("data") >= 0.002 and timer.total["step"] >= 0.004
     assert timer.mean("missing") == 0.0
-    assert set(timer.as_dict()) == {"time-data-mean-ms", "time-step-mean-ms"}
-    assert timer.as_dict()["time-data-mean-ms"] == pytest.approx(timer.mean("data") * 1e3)
     summary = timer.summary()
     assert summary.startswith("data: ") and "avg over 3" in summary and "step: " in summary
 
