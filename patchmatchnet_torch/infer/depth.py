@@ -5,7 +5,9 @@
 Host-side pre/post-processing around the forward: optional bucket padding
 of (H, W) with edge replication, and the resize back to the original
 resolution (bilinear for depth, nearest for confidence, both the
-reference's to the bit). The reference's window derivation, escape counter
+reference's to the bit). The images travel to the device, and the maps
+back, through host buffers the estimator keeps and reuses (pinned on a
+CUDA device). The reference's window derivation, escape counter
 and sampler demotion are not needed: the port's warp kernel reads the
 source features directly, so no sample can leave a window.
 """
@@ -13,7 +15,7 @@ source features directly, so no sample can leave a window.
 from __future__ import annotations
 
 import os
-from typing import Any, Dict, Iterable, Tuple, Union
+from typing import Any, Dict, Iterable, Optional, Tuple, Union
 
 import numpy as np
 import torch
@@ -46,11 +48,49 @@ class DepthEstimator:
             raise RuntimeError(f"device {self.device} requested but CUDA is not available")
         self.model = model.to(self.device).eval()
         self.bucket_multiple = bucket_multiple
+        # the dtype the model's first convolutions cast the images to
+        self.staging_dtype = getattr(model, "compute_dtype", None) or torch.float32
+        self.images_buffer: Optional[torch.Tensor] = None
+        self.maps_buffer: Optional[torch.Tensor] = None
+        self._images_sent: Optional[torch.cuda.Event] = None
 
     def _tensor(self, x: Any) -> torch.Tensor:
         # in C order: convolutions and matmuls pick their kernels by memory
         # layout, so a batch's values give the same maps whatever its strides
         return torch.as_tensor(np.asarray(x)).contiguous().to(self.device, non_blocking=True)
+
+    def _buffers(self, images_shape: Tuple[int, ...], maps_shape: Tuple[int, ...]) -> int:
+        """Allocate the staging buffers unless the last request's have these
+        shapes: `images_buffer` [B, N, H, W, 3] in `staging_dtype` and
+        `maps_buffer` [2, B, Ho, Wo] f32 (depth, confidence), pinned on a
+        CUDA device. Returns the number of allocations (0 or 1)."""
+        if (self.images_buffer is not None and self.images_buffer.shape == images_shape
+                and self.maps_buffer.shape == (2, *maps_shape)):
+            return 0
+        pin = self.device.type == "cuda"
+        self.images_buffer = torch.empty(images_shape, dtype=self.staging_dtype, pin_memory=pin)
+        self.maps_buffer = torch.empty((2, *maps_shape), dtype=torch.float32, pin_memory=pin)
+        return 1
+
+    def _stage_images(self, images: np.ndarray) -> torch.Tensor:
+        """f32 images [B, N, H, W, 3] (any strides) -> a C-ordered device
+        tensor in `staging_dtype`, through `images_buffer` one view at a
+        time: torch's copy_ casts the view into its slice on the host's
+        threads (round to nearest even, the model's own cast), then the
+        slice's copy to the device is queued, so the host casts the next
+        view while the card receives this one."""
+        if self._images_sent is not None:
+            self._images_sent.synchronize()  # the last request's copies out of the buffer
+        src, buffer = torch.from_numpy(images), self.images_buffer
+        out = torch.empty(buffer.shape, dtype=buffer.dtype, device=self.device)
+        for b in range(buffer.shape[0]):
+            for v in range(buffer.shape[1]):
+                buffer[b, v].copy_(src[b, v])
+                out[b, v].copy_(buffer[b, v], non_blocking=True)
+        if buffer.is_pinned():
+            self._images_sent = torch.cuda.Event()
+            self._images_sent.record(torch.cuda.current_stream(self.device))
+        return out
 
     @torch.inference_mode()
     def __call__(self, batch: Dict[str, Any],
@@ -71,34 +111,43 @@ class DepthEstimator:
                     images = np.pad(images, ((0, 0), (0, 0), (0, hb - h0), (0, wb - w0), (0, 0)),
                                     mode="edge")
                 h, w = images.shape[2:4]
+                orig_h = int(np.asarray(batch.get("orig_height", h0)).reshape(-1)[0])
+                orig_w = int(np.asarray(batch.get("orig_width", w0)).reshape(-1)[0])
                 # the noise of the whole global batch, of which a rank's batch
                 # (`BatchLoader(shard=...)`) takes its rows
                 start, rows = batch.get("rows", (0, b))
                 noise = torch.rand((rows, INITIAL_NUM_SAMPLES, h // 8, w // 8),
                                    generator=generator, device=self.device)[start:start + b]
             with span("pmn.request.copy_in") as copy_in:
-                copied = [self._tensor(x) for x in (images, batch["intrinsics"],
-                                                    batch["extrinsics"], batch["depth_min"],
-                                                    batch["depth_max"])]
-                copy_in.add(bytes=sum(t.nbytes for t in copied))
-                images, intrinsics, extrinsics, depth_min, depth_max = copied
+                allocs = self._buffers(images.shape, (b, orig_h, orig_w))
+                images = self._stage_images(images)
+                cameras = [self._tensor(batch[k]) for k in ("intrinsics", "extrinsics",
+                                                            "depth_min", "depth_max")]
+                copy_in.add(bytes=images.nbytes + sum(t.nbytes for t in cameras),
+                            staged_bytes=images.nbytes if self.images_buffer.is_pinned() else 0,
+                            staging_allocs=allocs)
+                intrinsics, extrinsics, depth_min, depth_max = cameras
             with span("pmn.request.forward"):
                 depth, confidence = self._forward(
                     images, intrinsics.float(), extrinsics.float(),
                     depth_min.float().reshape(b), depth_max.float().reshape(b), noise)
             with span("pmn.request.resize"):
                 depth, confidence = depth[:, :h0, :w0], confidence[:, :h0, :w0]
-                orig_h = int(np.asarray(batch.get("orig_height", h0)).reshape(-1)[0])
-                orig_w = int(np.asarray(batch.get("orig_width", w0)).reshape(-1)[0])
-                depth = resize_bilinear_maps(depth, orig_h, orig_w)
-                confidence = resize_nearest_maps(confidence, orig_h, orig_w)
+                maps = self.maps_buffer
+                maps[0].copy_(resize_bilinear_maps(depth, orig_h, orig_w), non_blocking=True)
+                maps[1].copy_(resize_nearest_maps(confidence, orig_h, orig_w), non_blocking=True)
             with span("pmn.request.wait"):
                 if self.device.type == "cuda":
                     torch.cuda.current_stream(self.device).synchronize()
             with span("pmn.request.copy_out") as copy_out:
-                out = depth.cpu().numpy(), confidence.cpu().numpy()
-                copy_out.add(bytes=out[0].nbytes + out[1].nbytes)
-        return out
+                # arrays of the caller's own, never views of the buffer
+                depth = np.empty(maps.shape[1:], np.float32)
+                confidence = np.empty(maps.shape[1:], np.float32)
+                torch.from_numpy(depth).copy_(maps[0])
+                torch.from_numpy(confidence).copy_(maps[1])
+                copy_out.add(bytes=maps.nbytes,
+                             staged_bytes=maps.nbytes if maps.is_pinned() else 0)
+        return depth, confidence
 
     def _forward(self, images, intrinsics, extrinsics, depth_min, depth_max, noise):
         depth, confidence, _ = self.model(images, intrinsics, extrinsics, depth_min,
@@ -124,6 +173,8 @@ class ModuleEstimator(DepthEstimator):
             raise RuntimeError(f"device {self.device} requested but CUDA is not available")
         self.bucket_multiple = 0  # shapes are baked into the artifact
         self.exported = load_exported(blob, self.device)
+        self.staging_dtype = torch.float32  # the artifact's images dtype
+        self.images_buffer = self.maps_buffer = self._images_sent = None
 
     def _forward(self, images, intrinsics, extrinsics, depth_min, depth_max, noise):
         if tuple(images.shape) != self.exported.shape:

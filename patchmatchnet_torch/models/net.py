@@ -82,8 +82,8 @@ class PatchmatchNet(nn.Module):
         generator: Optional[torch.Generator] = None,
     ) -> Tuple[torch.Tensor, torch.Tensor, Dict[int, List[torch.Tensor]]]:
         """Args:
-            images: [B, N, H, W, 3] f32, view 0 the reference; H, W
-                multiples of 8.
+            images: [B, N, H, W, 3] f32 or already in the compute dtype,
+                view 0 the reference; H, W multiples of 8.
             intrinsics: [B, N, 3, 3] at this resolution; extrinsics
                 [B, N, 4, 4] world-to-camera.
             depth_min / depth_max: [B] scene depth range.

@@ -244,6 +244,36 @@ def test_module_estimator_draws_the_noise_of_depth_estimator(f32_blob, state_dic
         np.testing.assert_array_equal(g, w)
 
 
+class _Spy:
+    """An artifact's stand-in that records the dtype of the images it is
+    handed and runs the artifact."""
+
+    def __init__(self, exported):
+        self.exported, self.shape, self.dtypes = exported, exported.shape, []
+
+    def __call__(self, images, *args):
+        self.dtypes.append(images.dtype)
+        return self.exported(images, *args)
+
+
+def test_module_estimator_hands_its_artifact_f32(f32_blob):
+    """The artifact gets the f32 images it was exported with, through the
+    estimator's staging buffer, and returns the maps of a direct call."""
+    images, intr, extr, dmin, dmax, _ = _forward_inputs()
+    batch = {"images": images, "intrinsics": intr, "extrinsics": extr,
+             "depth_min": dmin, "depth_max": dmax}
+    estimator = ModuleEstimator(f32_blob, "cpu")
+    estimator.exported = spy = _Spy(estimator.exported)
+    got = estimator(batch, torch.Generator().manual_seed(2))
+    assert estimator.staging_dtype == torch.float32 and spy.dtypes == [torch.float32]
+    assert estimator.images_buffer.dtype == torch.float32
+    noise = torch.rand((B, 48, H // 8, W // 8), generator=torch.Generator().manual_seed(2))
+    want = spy.exported(*(torch.from_numpy(x) for x in (images, intr, extr, dmin, dmax)),
+                        noise)
+    for g, w in zip(got, want):
+        np.testing.assert_array_equal(g, w.numpy())
+
+
 def test_save_depth_maps_takes_file_format_then_seed(f32_blob, tmp_path):
     """The JAX order (…, file_format, seed): a positional call writes the
     maps of the keyword call, and ModuleEstimator serves save_depth_maps."""
