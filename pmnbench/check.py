@@ -1,5 +1,7 @@
 """The numbers that decide `correct`: the program's outputs of the timed
-path against the plain reference (`reference.py`) on the same inputs.
+path against the plain reference of the configuration's architecture
+(`archs/<architecture>.py`; PatchmatchNet's is `reference.py`) on the same
+inputs.
 
 Maps: for each depth map kept from the window, with the depth range R of
 its request and the gap |depth - reference| / R at each pixel,
@@ -62,14 +64,6 @@ def tile_medians(gap: torch.Tensor, tile: int) -> torch.Tensor:
     h, w = gap.shape[-2] // tile * tile, gap.shape[-1] // tile * tile
     blocks = gap[..., :h, :w].reshape(-1, h // tile, tile, w // tile, tile)
     return blocks.permute(0, 1, 3, 2, 4).reshape(-1, tile * tile).float().median(dim=1).values
-
-
-def flax_to_program(key: str) -> str:
-    """The program's parameter name of a flax path
-    ("feature/conv0/conv/kernel" -> "feature.conv0.conv.weight")."""
-    scope, leaf = key.rsplit("/", 1)
-    return scope.replace("/", ".") + "." + {"kernel": "weight", "scale": "weight",
-                                            "bias": "bias"}[leaf]
 
 
 def _leaf_gaps(program: Dict[str, float], reference: Dict[str, float],

@@ -1,16 +1,17 @@
-"""The generator of "train" traffic: the program's `train_step`, back to
-back, on one card or on `ranks` cards over NCCL.
+"""The generator of "train" traffic: the architecture's train step
+(PatchmatchNet's: the program's `train_step`), back to back, on one card
+or on `ranks` cards over NCCL.
 
 Set-up makes the traffic's pool of global batches (`pool` batches of
-`batch` x `ranks` samples) and each batch's stage-3 noise on the device
-from the seed; every rank makes the same pool and takes its rows. It
-builds the model from the configuration with the checkpoint's weights (the
-program's `build_model` and loader), on `ranks` > 1 as a
-`parallel.mesh.replicate` replica (DDP and sync-BN) in ranks started by
-`parallel.mesh.launch`, each with one intra-op thread, and Adam
-(`make_optimizer`). It then drives three steps through the window's own
-call on the pool's first three batches: they warm every shape, and they
-are the steps the reference follows (the losses, the first gradient as
+`batch` x `ranks` samples) and what the program draws at random for each
+(PatchmatchNet's stage-3 noise) on the device from the seed; every rank
+makes the same pool and takes its rows. It builds the model from the
+configuration with its weights (`archs/<architecture>.py`), on `ranks` > 1
+as a `parallel.mesh.replicate` replica (DDP and sync-BN) in ranks started
+by `parallel.mesh.launch`, each with one intra-op thread, and the
+architecture's optimizer. It then drives three steps through the window's
+own call on the pool's first three batches: they warm every shape, and
+they are the steps the reference follows (the losses, the first gradient as
 Adam's first moment holds it, and the parameters after the third step).
 Two more steps, each ending in a synchronize, time a step, and the window
 takes as many steps as fill `--seconds` at that time (the same count on
@@ -21,6 +22,7 @@ barrier. Nothing is read back inside the window.
 from __future__ import annotations
 
 import gc
+import json
 import math
 import sys
 import time
@@ -29,8 +31,7 @@ from typing import Any, Dict, List, Optional, Tuple
 import torch
 
 from pmnbench import check, devtrace, scenes
-from pmnbench.harness import Window, now, program_model, reference_model
-from pmnbench.roofline.count import cell_bound
+from pmnbench.harness import Window, architecture, now, peak_gib
 
 CHECK_STEPS = 3
 TIMING_STEPS = 2
@@ -39,23 +40,24 @@ BATCH_KEYS = ("images", "intrinsics", "extrinsics", "depth_min", "depth_max", "d
               "mask")
 
 
-def make_batches(traffic: Dict[str, Any], seed: int, dev: torch.device, rank: int = 0,
+def make_batches(arch, traffic: Dict[str, Any], seed: int, dev: torch.device, rank: int = 0,
                  world: int = 1, rows: Optional[slice] = None
-                 ) -> Tuple[List[Dict[str, torch.Tensor]], List[torch.Tensor]]:
-    """The pool's batches and noises: rank `rank`'s rows of each global
-    batch of `batch` x `world` samples, or the rows `rows` (all: the
-    global batch)."""
+                 ) -> Tuple[List[Dict[str, torch.Tensor]], List[Optional[torch.Tensor]]]:
+    """The pool's batches and the architecture's extra inputs of each
+    (None where it draws nothing): rank `rank`'s rows of each global batch
+    of `batch` x `world` samples, or the rows `rows` (all: the global
+    batch)."""
     b, h, w = traffic["batch"], traffic["height"], traffic["width"]
     gen = torch.Generator(device=dev).manual_seed(seed)
     pool = scenes.make_scenes(gen, traffic["pool"] * b * world, traffic)
     rows = rows if rows is not None else slice(rank * b, (rank + 1) * b)
-    batches, noises = [], []
+    batches, extras = [], []
     for j in range(traffic["pool"]):
         glob = slice(j * b * world, (j + 1) * b * world)
         batches.append({k: pool[k][glob][rows].contiguous() for k in BATCH_KEYS})
-        noise = torch.rand((b * world, 48, h // 8, w // 8), generator=gen, device=dev)
-        noises.append(noise[rows].contiguous())
-    return batches, noises
+        extra = arch.extra_inputs(gen, b * world, h, w, dev)
+        extras.append(None if extra is None else extra[rows].contiguous())
+    return batches, extras
 
 
 def checked_steps(step, optimizer, model) -> Dict[str, Any]:
@@ -82,9 +84,9 @@ def rank_main(group, cell_data: Dict[str, Any], seed: int, seconds: float, trace
     """One rank's run (all of it, with `group` None, on one card)."""
     import torch.distributed as dist
     from patchmatchnet_torch.parallel import replicate
-    from patchmatchnet_torch.train.loop import make_optimizer, train_step
 
     traffic, config = cell_data["traffic"], cell_data["config"]
+    arch = architecture(config)
     if group is None:
         dev, rank, world, pg = torch.device(device), 0, 1, None
     else:
@@ -100,20 +102,19 @@ def rank_main(group, cell_data: Dict[str, Any], seed: int, seconds: float, trace
             if cuda:
                 torch.cuda.synchronize(dev)
 
-    batches, noises = make_batches(traffic, seed, dev, rank, world)
-    model = program_model(config, inference=False).to(dev)
+    batches, extras = make_batches(arch, traffic, seed, dev, rank, world)
+    model = arch.program_model(config, False, seed).to(dev)
     plain = model
     if group is not None:
         model = replicate(model, group)
     lr = float(config["learning_rate"])
-    optimizer = make_optimizer(model.parameters(), lr)
+    optimizer = arch.make_optimizer(model.parameters(), lr)
     step_index = [0]
 
     def step() -> Dict[str, torch.Tensor]:
         j = step_index[0] % traffic["pool"]
         step_index[0] += 1
-        metrics, _ = train_step(model, optimizer, batches[j], lr, noises[j], group=pg)
-        return metrics
+        return arch.train_step(model, optimizer, batches[j], lr, extras[j], pg)
 
     readings = checked_steps(step, optimizer, plain)
     sync()
@@ -150,9 +151,9 @@ def calibration_rank(group, cell_data: Dict[str, Any], seeds: List[int], fault: 
     trains on half of each rank's rows) or "alone" (no exchange between
     the ranks: neither DDP nor sync-BN)."""
     from patchmatchnet_torch.parallel import replicate
-    from patchmatchnet_torch.train.loop import make_optimizer, train_step
 
     traffic, config = cell_data["traffic"], cell_data["config"]
+    arch = architecture(config)
     if group is None:
         dev, rank, world, pg = torch.device(device), 0, 1, None
     else:
@@ -161,21 +162,21 @@ def calibration_rank(group, cell_data: Dict[str, Any], seeds: List[int], fault: 
     lr = float(config["learning_rate"])
     out = []
     for seed in seeds:
-        batches, noises = make_batches(traffic, seed, dev, rank, world)
+        batches, extras = make_batches(arch, traffic, seed, dev, rank, world)
         if fault == "half":
             keep = traffic["batch"] // 2
             batches = [{k: v[:keep] for k, v in b.items()} for b in batches]
-            noises = [n[:keep] for n in noises]
-        model = program_model(config, inference=False).to(dev)
+            extras = [None if e is None else e[:keep] for e in extras]
+        model = arch.program_model(config, False, seed).to(dev)
         plain = model
         if group is not None and fault != "alone":
             model = replicate(model, group)
-        optimizer = make_optimizer(model.parameters(), lr)
+        optimizer = arch.make_optimizer(model.parameters(), lr)
         it = iter(range(CHECK_STEPS))
 
         def step():
             j = next(it)
-            return train_step(model, optimizer, batches[j], lr, noises[j], group=pg)[0]
+            return arch.train_step(model, optimizer, batches[j], lr, extras[j], pg)
 
         out.append(checked_steps(step, optimizer, plain))
     return out
@@ -207,7 +208,7 @@ def run(window: Window, args, t0: float, device: str) -> None:
     window.count = first["count"]
     window.samples = first["count"] * traffic["batch"] * ranks
     window.peak_bytes = max(r["peak"] for r in results)
-    window.bound = cell_bound(config, traffic)
+    window.bound = cell.arch.bound(config, traffic)
     if args.trace:
         window.trace = devtrace.merge_ranks([r["trace"] for r in results])
     gc.collect()
@@ -216,29 +217,82 @@ def run(window: Window, args, t0: float, device: str) -> None:
     judge_steps(window, first, args.seed, dev)
 
 
+def keyed(arch, program: Dict[str, Any], keys) -> Dict[str, Any]:
+    """The program's readings (`checked_steps`) under the reference's
+    parameter names `keys`."""
+    return {"losses": program["losses"],
+            "grad_norms": {k: program["grad_norms"][arch.program_key(k)] for k in keys},
+            "change_norms": {k: program["change_norms"][arch.program_key(k)] for k in keys}}
+
+
 def judge_steps(window: Window, program: Dict[str, Any], seed: int, dev: torch.device) -> None:
     """Follow the first three steps with the reference on the global
     batches and compare."""
-    from pmnbench import reference
-
     cell = window.cell
-    traffic, config, limits = cell.traffic, cell.config, cell.limits
-    batches, noises = make_batches(traffic, seed, dev, world=int(traffic["ranks"]),
+    traffic, config, limits, arch = cell.traffic, cell.config, cell.limits, cell.arch
+    batches, extras = make_batches(arch, traffic, seed, dev, world=int(traffic["ranks"]),
                                    rows=slice(None))
-    ref = reference_model(config, "f32", dev)
-    out = reference.train_steps(ref, batches[:CHECK_STEPS], noises[:CHECK_STEPS],
-                                float(config["learning_rate"]))
-    mine = {"losses": program["losses"],
-            "grad_norms": {k: program["grad_norms"][check.flax_to_program(k)]
-                           for k in out["grads"]},
-            "change_norms": {k: program["change_norms"][check.flax_to_program(k)]
-                             for k in out["grads"]}}
-    theirs = {"losses": out["losses"],
-              "grad_norms": {k: float(g.norm()) for k, g in out["grads"].items()},
-              "change_norms": {k: float((ref.params[k] - out["params0"][k]).norm())
-                               for k in out["grads"]}}
-    numbers = check.train_numbers(mine, theirs)
+    ref = arch.reference_model(config, "f32", dev, seed)
+    theirs = arch.reference_train_steps(ref, batches[:CHECK_STEPS], extras[:CHECK_STEPS],
+                                        float(config["learning_rate"]))
+    numbers = check.train_numbers(keyed(arch, program, theirs["grad_norms"]), theirs)
     print("steps: " + ", ".join(f"{k} {v!r}" for k, v in numbers.items()), file=sys.stderr)
     window.checked = 1
     window.wrong = int(any(numbers[n] > limit for n, limit in limits["numbers"].items()))
     window.checks = [(n, numbers[n], float(limit)) for n, limit in limits["numbers"].items()]
+
+
+def calibrate(cell, args, dev) -> None:
+    """`calibrate.py`'s readings of a train cell: for each seed, the
+    program's first steps (`calibration_rank`) against the f32 reference's;
+    on the first `--control-seeds` seeds also the control (the reference in
+    fp8), the witness (in bf16), and the program with half of each rank's
+    rows left out and, on several ranks, with no exchange between them."""
+    traffic, config, arch = cell.traffic, cell.config, cell.arch
+    lr = float(config["learning_rate"])
+    ranks = int(traffic["ranks"])
+    seeds = [args.first_seed + 7919 * s for s in range(args.seeds)]
+    control_seeds = seeds[:args.control_seeds]
+    cell_data = {"traffic": traffic, "config": config}
+
+    def program(seed_list, fault=""):
+        if ranks == 1:
+            return calibration_rank(None, cell_data, seed_list, fault, str(dev))
+        from patchmatchnet_torch.parallel import launch
+
+        return launch(calibration_rank, ranks, (cell_data, seed_list, fault),
+                      device_type=dev.type)[0].value
+
+    readings = {"program": program(seeds), "half_batch": program(control_seeds, "half")}
+    if ranks > 1:
+        readings["no_exchange"] = program(control_seeds, "alone")
+
+    def reference_side(batches, extras, precision, seed):
+        ref = arch.reference_model(config, precision, dev, seed)
+        return arch.reference_train_steps(ref, batches[:CHECK_STEPS], extras[:CHECK_STEPS], lr)
+
+    for i, seed in enumerate(seeds):
+        batches, extras = make_batches(arch, traffic, seed, dev, world=ranks, rows=slice(None))
+        if dev.type == "cuda":
+            torch.cuda.reset_peak_memory_stats(dev)
+        start = time.perf_counter()
+        theirs = reference_side(batches, extras, "f32", seed)
+        if dev.type == "cuda":
+            torch.cuda.synchronize(dev)
+        keys = list(theirs["grad_norms"])
+        line = {"seed": seed, "ref_s": time.perf_counter() - start,
+                "ref_peak_gib": peak_gib(dev), "ref_losses": theirs["losses"]}
+        mine = keyed(arch, readings["program"][i], keys)
+        line["program"] = check.train_numbers(mine, theirs)
+        line["program_worst"] = check.worst_leaves(mine, theirs)
+        if i < len(control_seeds):
+            control = reference_side(batches, extras, "fp8", seed)
+            line["control"] = check.train_numbers(control, theirs)
+            witness = reference_side(batches, extras, "bf16", seed)
+            line["witness_bf16"] = check.train_numbers(witness, theirs)
+            line["witness_worst"] = check.worst_leaves(witness, theirs)
+            for fault in ("half_batch", "no_exchange"):
+                if fault in readings:
+                    line[fault] = check.train_numbers(keyed(arch, readings[fault][i], keys),
+                                                      theirs)
+        print(json.dumps(line), flush=True)

@@ -2,33 +2,72 @@
 read its metrics, judge its outputs, print the result line.
 
 A cell (`workloads` entry of BENCHMARK.json) names a configuration
-(`configs/<config>.json`) and a traffic mix (`traffic/<traffic>.json`);
-the mix's "kind" picks the generator that drives it (`drive_maps` or
-`drive_train`), the cell's limits are `limits/<workload>.json`, and each
-metric is read by `metrics/<name>.py`'s `read(window)`, which returns a
-number or None (nothing to read: the metric is left out of the line).
+(`configs/<config>.json`) and a traffic mix (`traffic/<traffic>.json`).
+The configuration's "architecture" names the module
+`archs/<architecture>.py` through which the run reaches the program, the
+plain reference and the bound; the mix's "kind" names the generator that
+drives it, `drive_<kind>.py`. The cell's limits are
+`limits/<workload>.json`, and each metric is read by
+`metrics/<name>.py`'s `read(window)`, which returns a number or None
+(nothing to read: the metric is left out of the line).
 """
 
 from __future__ import annotations
 
+import importlib
 import importlib.util
 import json
 import math
 import os
+import re
 import sys
 import time
 from dataclasses import dataclass, field
+from types import ModuleType
 from typing import Any, Dict, List, Optional, Tuple
 
 HERE = os.path.dirname(os.path.abspath(__file__))
 ROOT = os.path.dirname(HERE)
 FORBIDDEN = ("jax", "jaxlib", "flax", "patchmatchnet_tpu")
-DRIVERS = {"maps": "pmnbench.drive_maps", "train": "pmnbench.drive_train"}
+MODULE_NAME = re.compile(r"^[A-Za-z_][A-Za-z0-9_]*$")
 
 
 def load_json(*parts: str) -> Any:
     with open(os.path.join(*parts)) as f:
         return json.load(f)
+
+
+def _module_path(what: str, name: str, stem: str) -> str:
+    """`pmnbench/<stem>.py`, the module of the `what` named `name`, or a
+    SystemExit that says which file is missing."""
+    path = os.path.join(HERE, f"{stem}.py")
+    if not MODULE_NAME.match(name) or not os.path.isfile(path):
+        raise SystemExit(f"pmnbench: no {what} {name!r}: pmnbench/{stem}.py is not there")
+    return path
+
+
+def architecture(config: Dict[str, Any]) -> ModuleType:
+    """The module `archs/<architecture>.py` of a configuration, loaded by
+    file name once a process."""
+    if "architecture" not in config:
+        raise SystemExit(f"pmnbench: configuration {config.get('name')!r} names no "
+                         "\"architecture\" (a module of pmnbench/archs/)")
+    name = str(config["architecture"])
+    path = _module_path("architecture", name, f"archs/{name}")
+    key = f"pmnbench_arch_{name}"
+    if key not in sys.modules:
+        spec = importlib.util.spec_from_file_location(key, path)
+        module = importlib.util.module_from_spec(spec)
+        sys.modules[key] = module
+        spec.loader.exec_module(module)
+    return sys.modules[key]
+
+
+def driver(traffic: Dict[str, Any]) -> ModuleType:
+    """The generator `drive_<kind>.py` of a traffic mix."""
+    kind = str(traffic.get("kind"))
+    _module_path("traffic kind", kind, f"drive_{kind}")
+    return importlib.import_module(f"pmnbench.drive_{kind}")
 
 
 @dataclass
@@ -39,6 +78,7 @@ class Cell:
     limits: Dict[str, Any]
     end_to_end: List[Dict[str, Any]]
     per_layer: List[Dict[str, Any]]
+    arch: ModuleType  # archs/<architecture>.py
 
 
 def load_cell(name: str, manifest_path: Optional[str] = None) -> Cell:
@@ -58,7 +98,7 @@ def load_cell(name: str, manifest_path: Optional[str] = None) -> Cell:
     names = {m["name"] for m in e2e}
     layer = [m for m in manifest["per_layer"]
              if (name in m["workloads"] if "workloads" in m else m["moves"] in names)]
-    return Cell(workload, config, traffic, limits, e2e, layer)
+    return Cell(workload, config, traffic, limits, e2e, layer, architecture(config))
 
 
 @dataclass
@@ -91,6 +131,13 @@ def read_metric(name: str, window: Window) -> Optional[float]:
         return None
     value = float(value)
     return value if math.isfinite(value) else None
+
+
+def peak_gib(dev) -> float:
+    """The device's peak of allocated memory in GiB (0 on the CPU)."""
+    import torch
+
+    return torch.cuda.max_memory_allocated(dev) / 2 ** 30 if dev.type == "cuda" else 0.0
 
 
 def forbidden_modules() -> List[str]:
@@ -137,9 +184,8 @@ def run(args, t0: float, device: Optional[str] = None) -> int:
                   file=sys.stderr)
             return 2
         device = "cuda"
-    driver = importlib.import_module(DRIVERS[cell.traffic["kind"]])
     window = Window(cell)
-    driver.run(window, args, t0, device)
+    driver(cell.traffic).run(window, args, t0, device)
     found = forbidden_modules()
     if found:
         print(f"pmnbench: modules that must not load were loaded: {found}", file=sys.stderr)
@@ -150,52 +196,6 @@ def run(args, t0: float, device: Optional[str] = None) -> int:
     sys.stderr.flush()
     print(json.dumps(line), flush=True)
     return 0
-
-
-# ---------------------------------------------------------------------------
-# The program under test
-# ---------------------------------------------------------------------------
-
-
-def program_config(config: Dict[str, Any]):
-    """The program's `Config` for a configuration file."""
-    from patchmatchnet_torch.config import Config, ModelConfig
-
-    model = ModelConfig(**{k: tuple(v) for k, v in config["model"].items()},
-                        precision=config["precision"],
-                        train_precision=config["train_precision"])
-    return Config(model=model)
-
-
-def program_model(config: Dict[str, Any], inference: bool):
-    """The program's model of the configuration, with the checkpoint's
-    weights loaded by the program's own loader (on the host)."""
-    from patchmatchnet_torch.train.driver import build_model, load_any_checkpoint
-
-    model = build_model(program_config(config), inference=inference)
-    model.load_state_dict(load_any_checkpoint(os.path.join(ROOT, config["checkpoint"])),
-                          strict=True)
-    return model
-
-
-def reference_model(config: Dict[str, Any], precision: str, device):
-    """The plain reference on `device`, from the same checkpoint file."""
-    from pmnbench import reference
-
-    params, stats = reference.load_weights(os.path.join(ROOT, config["checkpoint"]))
-    m = config["model"]
-    features = dict(zip((1, 2, 3), config["feature_channels"][1:]))
-    stages = {s: {"interval_scale": m["patchmatch_interval_scale"][s - 1],
-                  "propagation_range": m["propagation_range"][s - 1],
-                  "iterations": m["patchmatch_iteration"][s - 1],
-                  "num_samples": m["patchmatch_num_sample"][s - 1],
-                  "propagate_neighbors": m["propagate_neighbors"][s - 1],
-                  "evaluate_neighbors": m["evaluate_neighbors"][s - 1],
-                  "features": features[s], "groups": config["stage_groups"][s - 1]}
-              for s in (1, 2, 3)}
-    return reference.ReferenceModel({k: v.to(device) for k, v in params.items()},
-                                    {k: v.to(device) for k, v in stats.items()},
-                                    stages, precision)
 
 
 def now() -> float:

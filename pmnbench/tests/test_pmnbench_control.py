@@ -16,9 +16,9 @@ REPO = os.path.dirname(os.path.dirname(HERE))
 sys.path[:0] = [REPO, HERE]
 
 import tiny  # noqa: E402
-from pmnbench import check, reference, scenes  # noqa: E402
+from pmnbench import check, scenes  # noqa: E402
 from pmnbench.drive_train import CHECK_STEPS, make_batches  # noqa: E402
-from pmnbench.harness import load_cell, reference_model  # noqa: E402
+from pmnbench.harness import load_cell  # noqa: E402
 
 MANIFEST = json.load(open(os.path.join(REPO, "BENCHMARK.json")))
 WORKLOADS = [w["name"] for w in MANIFEST["workloads"]]
@@ -35,33 +35,30 @@ def _fails(cell, numbers):
 
 
 def _map_control(cell, seed, dev):
-    traffic = cell.traffic
+    traffic, arch = cell.traffic, cell.arch
     sc = scenes.make_scenes(torch.Generator(device=dev).manual_seed(seed), 1, traffic)
     h, w = traffic["height"], traffic["width"]
-    noise = torch.rand((1, 48, h // 8, w // 8), generator=torch.Generator(device=dev)
-                       .manual_seed(seed + 1), device=dev)
-    args = [sc[k] for k in ("images", "intrinsics", "extrinsics", "depth_min", "depth_max")]
+    extra = arch.extra_inputs(torch.Generator(device=dev).manual_seed(seed + 1), 1, h, w, dev)
+    tensors = {k: sc[k] for k in ("images", "intrinsics", "extrinsics", "depth_min",
+                                  "depth_max")}
     with torch.no_grad():
-        ref = reference_model(cell.config, "f32", dev).forward(*args, noise)
-        low = reference_model(cell.config, "fp8", dev).forward(*args, noise)
+        ref = arch.reference_map(arch.reference_model(cell.config, "f32", dev, seed),
+                                 tensors, extra)
+        low = arch.reference_map(arch.reference_model(cell.config, "fp8", dev, seed),
+                                 tensors, extra)
     return check.map_numbers(low[0], low[1], ref[0], ref[1],
                              float(sc["depth_max"][0] - sc["depth_min"][0]),
                              cell.limits["params"])
 
 
 def _train_control(cell, seed, dev):
-    traffic, config = cell.traffic, cell.config
-    batches, noises = make_batches(traffic, seed, dev, world=int(traffic["ranks"]),
+    traffic, config, arch = cell.traffic, cell.config, cell.arch
+    batches, extras = make_batches(arch, traffic, seed, dev, world=int(traffic["ranks"]),
                                    rows=slice(None))
-    sides = []
-    for precision in ("f32", "fp8"):
-        ref = reference_model(config, precision, dev)
-        out = reference.train_steps(ref, batches[:CHECK_STEPS], noises[:CHECK_STEPS],
-                                    float(config["learning_rate"]))
-        sides.append({"losses": out["losses"],
-                      "grad_norms": {k: float(g.norm()) for k, g in out["grads"].items()},
-                      "change_norms": {k: float((ref.params[k] - out["params0"][k]).norm())
-                                       for k in out["grads"]}})
+    sides = [arch.reference_train_steps(arch.reference_model(config, precision, dev, seed),
+                                        batches[:CHECK_STEPS], extras[:CHECK_STEPS],
+                                        float(config["learning_rate"]))
+             for precision in ("f32", "fp8")]
     return check.train_numbers(sides[1], sides[0])
 
 

@@ -68,7 +68,8 @@ def test_every_reader_reads_a_window():
     from pmnbench import harness
 
     trace = devtrace.summarize(TRACE, units=2)
-    cell = harness.Cell({}, {}, {"kind": "train"}, {}, [], [])
+    config = {"architecture": "patchmatchnet"}
+    cell = harness.Cell({}, config, {"kind": "train"}, {}, [], [], harness.architecture(config))
     window = harness.Window(cell, setup_s=12.0, window_s=30.0, count=120, samples=960,
                             request_s=[0.2] * 150, peak_bytes=2 ** 33, ranks=1, trace=trace,
                             bound={"bound_ms": 18.0, "groups": {"convolutions": 0.001,

@@ -84,3 +84,19 @@ def test_layers_are_spelled_alike():
     for m in MANIFEST["per_layer"]:
         by_layer.setdefault(m["layer"].split(":")[0], set()).add(m["layer"])
     assert all(len(v) == 1 for v in by_layer.values())
+
+
+@pytest.mark.parametrize("config,said", [
+    ({"name": "c"}, "names no \"architecture\""),
+    ({"name": "c", "architecture": "absent"}, "pmnbench/archs/absent.py is not there"),
+    ({"name": "c", "architecture": "../harness"}, "no architecture '../harness'"),
+])
+def test_an_architecture_is_named_and_found(config, said):
+    with pytest.raises(SystemExit, match=re.escape(said)):
+        harness.architecture(config)
+
+
+def test_a_traffic_kind_is_found_by_file():
+    assert harness.driver({"kind": "maps"}).__name__ == "pmnbench.drive_maps"
+    with pytest.raises(SystemExit, match=re.escape("pmnbench/drive_absent.py is not there")):
+        harness.driver({"kind": "absent"})

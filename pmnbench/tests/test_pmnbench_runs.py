@@ -1,8 +1,10 @@
 """Whole runs of the benchmark on the CPU at a tiny size (`tiny.py`): every
-cell runs and is correct with the program in f32; a fault planted in the
+cell runs and is correct with the program in f32; its readings at two
+seeds are those frozen in `frozen_readings.json`; a fault planted in the
 program's timed path makes `correct` false; nothing of JAX loads; and a
-cell, a configuration, a traffic mix, a metric and a kernel group are added
-by new files and entries alone."""
+cell, a configuration, a traffic mix, a metric and a kernel group, or a
+second architecture with its cells (`stub_arch/`), are added by new files
+and entries alone."""
 
 import json
 import os
@@ -61,15 +63,44 @@ def _alone(model, group):
     return model
 parallel.replicate = mesh.replicate = _alone
 """
+STUB_ALTERED = """
+import stubnet
+_call = stubnet.Estimator.__call__
+def _altered(self, batch, generator):
+    depth, confidence = _call(self, batch, generator)
+    return depth * 1.01, confidence
+stubnet.Estimator.__call__ = _altered
+"""
+STUB_UNCHANGED = """
+import torch
+import stubnet
+_step = stubnet.train_step
+def _unchanged(model, optimizer, batch, lr):
+    saved = [p.detach().clone() for p in model.parameters()]
+    out = _step(model, optimizer, batch, lr)
+    with torch.no_grad():
+        for p, s in zip(model.parameters(), saved):
+            p.copy_(s)
+    return out
+stubnet.train_step = _unchanged
+"""
 FAKE_JAX = """
 import sys, types
 sys.modules["jax"] = types.ModuleType("jax")
 """
 
 
+FROZEN = json.load(open(os.path.join(HERE, "frozen_readings.json")))["readings"]
+
+
 @pytest.fixture(scope="module")
 def copy_f32(tmp_path_factory):
     return tiny.make_copy(str(tmp_path_factory.mktemp("pmnbench_f32")), precision="f32")
+
+
+@pytest.fixture(scope="module")
+def copy_as_configured(tmp_path_factory):
+    return tiny.make_copy(str(tmp_path_factory.mktemp("pmnbench_configured")))
 
 
 @pytest.mark.parametrize("workload", MAP_CELLS + TRAIN_CELLS)
@@ -87,6 +118,19 @@ def test_cell_runs_correct(copy_f32, workload, traced):
         names = {m["name"] for m in MANIFEST["end_to_end"]
                  if workload in m.get("workloads", [workload])}
         assert names - {"peak_device_gib"} == set(line["metrics"])
+
+
+@pytest.mark.parametrize("key", sorted(FROZEN))
+def test_readings_are_frozen(copy_f32, copy_as_configured, key):
+    """The numbers compared, and those printed beside them, of each cell at
+    two seeds, to the bit."""
+    precision, workload, seed = key.split("/")
+    copy = copy_f32 if precision == "f32" else copy_as_configured
+    proc = tiny.run(copy, workload, seed=int(seed))
+    line = tiny.result(proc)
+    said = [ln for ln in proc.stderr.splitlines() if ln.startswith(("map ", "steps: "))]
+    assert {k: v["value"] for k, v in line["checks"].items()} == FROZEN[key]["checks"]
+    assert said == FROZEN[key]["said"]
 
 
 @pytest.mark.parametrize("workload", MAP_CELLS)
@@ -196,3 +240,101 @@ def test_cell_added_by_files_and_entries_alone(tmp_path):
     after = {os.path.relpath(os.path.join(d, f), bench): open(os.path.join(d, f), "rb").read()
              for d, _, files in os.walk(bench) for f in files if "__pycache__" not in d}
     assert all(after[k] == v for k, v in before.items() if "__pycache__" not in k)
+
+
+def _add_stub(root):
+    """Add `stub_arch/`'s files and its cells' entries to the copy `root`;
+    return the cells with their end-to-end metric."""
+    import shutil
+
+    stub = os.path.join(HERE, "stub_arch")
+    for d, _, files in os.walk(stub):
+        for f in files:
+            if f.endswith((".py", ".json")):
+                rel = os.path.relpath(os.path.join(d, f), stub)
+                assert not os.path.exists(os.path.join(root, rel)), rel
+                os.makedirs(os.path.dirname(os.path.join(root, rel)), exist_ok=True)
+                shutil.copy(os.path.join(d, f), os.path.join(root, rel))
+    manifest = json.load(open(os.path.join(root, "BENCHMARK.json")))
+    manifest["configs"].append({"name": "stub-net", "source": "test",
+                                "file": "pmnbench/configs/stub-net.json", "reduced": [],
+                                "why": "test"})
+    cells = {"stub-maps": "stub_map_ms", "stub-train": "stub_samples_per_s"}
+    for cell, metric in cells.items():
+        manifest["workloads"].append({"name": cell, "config": "stub-net", "traffic": cell,
+                                      "chips": 1, "why": "test"})
+        manifest["end_to_end"].append({"name": metric, "unit": "u", "better": "lower",
+                                       "bound": 0.05, "source": "host_clock",
+                                       "workloads": [cell]})
+        manifest["per_layer"].append({"name": f"mfu.{cell}", "unit": "%", "better": "higher",
+                                      "source": "host_clock", "layer": "whole forward or step",
+                                      "moves": metric, "workloads": [cell]})
+    with open(os.path.join(root, "BENCHMARK.json"), "w") as f:
+        json.dump(manifest, f)
+    return cells
+
+
+def test_architecture_added_by_files_and_entries_alone(tmp_path):
+    """A second architecture (`stub_arch/`: `archs/stub.py`, a plane-sweep
+    net with seeded weights and no random input, whose program `stubnet.py`
+    lies outside the benchmark as the port does) with a configuration, a
+    maps and a train traffic, limits, metrics and a kernel group: both
+    cells run correct, a fault planted in its program makes each not
+    correct, and no file of the benchmark changed."""
+    root = tiny.make_copy(str(tmp_path), precision="f32")
+    bench = os.path.join(root, "pmnbench")
+    before = {os.path.relpath(os.path.join(d, f), bench): open(os.path.join(d, f), "rb").read()
+              for d, _, files in os.walk(bench) for f in files}
+    cells = _add_stub(root)
+    for cell, metric in cells.items():
+        line = tiny.result(tiny.run(root, cell))
+        assert line["correct"] is True and line["failed"] == 0, line
+        assert set(line["metrics"]) == {metric, "setup_s"}
+        traced = tiny.result(tiny.run(root, cell, trace=1))
+        assert traced["correct"] is True
+        assert set(traced["metrics"]) == {f"mfu.{cell}"}
+    plant = f"import sys\nsys.path.insert(0, {root!r})\n"
+    for cell, fault in (("stub-maps", STUB_ALTERED), ("stub-train", STUB_UNCHANGED)):
+        line = tiny.result(tiny.run(root, cell, plant=plant + fault))
+        assert line["correct"] is False, line
+    after = {os.path.relpath(os.path.join(d, f), bench): open(os.path.join(d, f), "rb").read()
+             for d, _, files in os.walk(bench) for f in files if "__pycache__" not in d}
+    assert all(after[k] == v for k, v in before.items() if "__pycache__" not in k)
+
+
+def _calibrate(root, workload):
+    """`calibrate.py` of the copy `root` on the CPU, two seeds, the first
+    with the control, the witness and the planted faults."""
+    import subprocess
+
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    env.update(OMP_NUM_THREADS="4", PYTHONPATH=REPO)
+    proc = subprocess.run([sys.executable, os.path.join(root, "pmnbench", "calibrate.py"),
+                           "--workload", workload, "--seeds", "2", "--control-seeds", "1",
+                           "--device", "cpu"],
+                          capture_output=True, text=True, env=env, timeout=600, cwd=root)
+    assert proc.returncode == 0, proc.stderr[-4000:]
+    head, *lines = [json.loads(ln) for ln in proc.stdout.splitlines()]
+    assert head == {"device": "cpu", "workload": workload}
+    return lines
+
+
+@pytest.mark.parametrize("workload", MAP_CELLS + TRAIN_CELLS[:1] + ["stub-maps", "stub-train"])
+def test_calibrate_reads_through_the_traffic_kind(tmp_path, copy_f32, workload):
+    """`calibrate.py` takes its readings from the traffic's own
+    `drive_<kind>.py`, for PatchmatchNet's cells and a second
+    architecture's alike: the program in f32 reads inside the cell's
+    limits, and the first seed also reads the control, the witness and,
+    for a train cell, the half batch."""
+    root = copy_f32
+    if workload.startswith("stub-"):
+        root = tiny.make_copy(str(tmp_path), precision="f32")
+        _add_stub(root)
+    limits = json.load(open(os.path.join(root, "pmnbench", "limits", f"{workload}.json")))
+    lines = _calibrate(root, workload)
+    assert [ln["seed"] for ln in lines] == [2718281828, 2718281828 + 7919]
+    for ln in lines:
+        assert all(ln["program"][n] <= limit for n, limit in limits["numbers"].items()), ln
+    assert {"control", "witness_bf16"} <= set(lines[0]) and "control" not in lines[1]
+    if "ref_losses" in lines[0]:
+        assert "half_batch" in lines[0]
