@@ -236,6 +236,27 @@ result line:
    shrink, with the library and with the twins in turns, both equal to
    `read_image`. One `host library:` JSON line. Prints the phase's seconds.
 
+19. CasMVSNet (`models/casmvsnet.py`) and K8 (`ops.variance_volume`):
+   (a) K8 against its plain version (`variance_volume_reference`, one
+   grid_sample per source view) on the card at the cell's stage shapes of
+   1152x864 with 1 + 4 views (stage 1: D 48, C 32 at 216x288; stage 2: D
+   32, C 16 at 432x576; stage 3: D 8, C 8 at 864x1152; planes about a
+   slanted plane, some samples off the source images), bf16 and f32
+   payloads: every value within CAS_TOL of the plain one (atol + rtol x
+   |plain|: one bf16 step; leaving a view out moves the O(1) variance by
+   ~0.2), max and mean |kernel - plain| printed, and each
+   bf16 stage's event, device, plain and bound ms; (b) the bf16 model
+   from `build_model` (architecture "casmvsnet") with the plain
+   reference's seeded state (`pmnbench/reference_casmvsnet.py`
+   `seeded_state(CAS_SEED)`) through DepthEstimator and save_depth_maps on
+   a 5-view 1152x864 scene (5 maps of 1 + 4 views): the launch counts, zeroed
+   just before the run, must be K8 3 a map and nothing else; maps finite at
+   1152x864, depths inside the scene's range; ms per map, peak memory; then
+   K8's device ms per map from a trace of CAS_TRACED requests beside its
+   bound (the sum of the three stages' `dev.roofline.kernel_work`). Prints
+   a `kernels` JSON line of K8 alone; the last line's kernels line holds it
+   too.
+
 The last line is {"ok": true, "device": {...}}; the line before it holds
 the per-kernel JSON summary.
 """
@@ -288,6 +309,16 @@ CLI_TIMEOUT = 300  # seconds, each CLI process
 EXPORT_REQUESTS = 3
 EXPORT_CLI_VIEWS = 6
 MOVED_H, MOVED_W, MOVED_VIEWS = 64, 80, 3
+# CasMVSNet (phase 19): 1 + 4 views at the main path's 1152x864 (the cell
+# cas-dtu-maps' geometry); K8's stage shapes (planes, channels, image pixels
+# a feature pixel, planes' spacing in base intervals); the requests traced
+# for K8's device time, the seeded state's seed; K8 against
+# its plain version, (atol, rtol) of every value by payload (those of
+# tests/test_torch_casmvsnet.py): f32 the sums' order, bf16 one rounding
+# step either way
+CAS_VIEWS, CAS_TRACED, CAS_SEED = 5, 3, 7
+CAS_STAGES = ((48, 32, 4, 4.0), (32, 16, 2, 2.0), (8, 8, 1, 1.0))
+CAS_TOL = {"f32": (1e-3, 1e-3), "bf16": (1e-2, 1e-2)}
 # the source views' x baselines of the parity rig (the first is the reference)
 RIG_BASELINES = (0.0, 0.35, -0.35, 0.7, -0.7)
 # the rig of phase 12 (a)'s kernel shapes: 1 + 5 views
@@ -338,6 +369,8 @@ KERNEL_INFO = {
                               "patchmatchnet_tpu/ops/pallas/windowed_similarity.py:942"),
     "coord_group_corr": ("patchmatchnet_torch/csrc/group_corr.cu",
                          "patchmatchnet_tpu/ops/pallas/windowed_similarity.py:375"),
+    # K8, CasMVSNet's variance cost volume: the JAX package has no such kernel
+    "variance_volume": ("patchmatchnet_torch/csrc/variance_volume.cu", None),
 }
 # The gather microbenchmarks' kernels, one entry per TPU kernel of
 # tools/dev/bench_gather.py: id -> (kernel, section of the port's tool,
@@ -3280,6 +3313,140 @@ def read_training_run(out: str, steps: int):
     return train
 
 
+def casmvsnet_path(device, scratch, smi):
+    """Phase 19: returns ({"variance_volume": summary entry}, {"variance_volume":
+    launches of the DepthEstimator run})."""
+    import numpy as np
+    import torch
+
+    from patchmatchnet_torch.config import Config
+    from patchmatchnet_torch.data import BatchLoader, MVSDataset, make_synthetic_scene, read_pfm
+    from patchmatchnet_torch.dev.roofline import bound, kernel_work
+    from patchmatchnet_torch.infer import DepthEstimator, save_depth_maps
+    from patchmatchnet_torch.ops import cuda_build
+    from patchmatchnet_torch.ops.variance_volume import (
+        variance_volume,
+        variance_volume_reference,
+    )
+    from patchmatchnet_torch.ops.warp import warp_proj_coeffs
+    from patchmatchnet_torch.train.driver import build_model
+    from patchmatchnet_torch.utils.trace import device_ms, fmt_ms, whole_trace
+    from pmnbench.reference_casmvsnet import seeded_state
+
+    name = "variance_volume"
+    summary = new_summary([name])[name]
+    stage_bound_ms = 0.0  # each stage bound by its own resource
+    gen = torch.Generator(device=device).manual_seed(19)
+    base = (935.0 - 425.0) / 191
+    print(f"K8 against its plain version, 1 + {CAS_VIEWS - 1} views at {MAIN_W}x{MAIN_H}; "
+          f"{smi}", flush=True)
+    for d, c, scale, ratio in CAS_STAGES:
+        h, w = MAIN_H // scale, MAIN_W // scale
+        f = 1.8 * w
+        k = torch.tensor([[f, 0, w / 2.0], [0, f, h / 2.0], [0, 0, 1]], device=device)
+        proj = torch.eye(4, device=device).repeat(1, CAS_VIEWS, 1, 1)
+        proj[0, 1:, 0, 3] = torch.tensor([60.0, -60.0, 120.0, -120.0], device=device)
+        proj[0, 1:, 1, 3] = torch.tensor([30.0, -30.0, -60.0, 60.0], device=device)
+        proj[:, :, :3, :4] = k @ proj[:, :, :3, :4]
+        mats = warp_proj_coeffs(proj[:, 1:], proj[:, :1])
+        slant = 520.0 + 330.0 * torch.arange(w, device=device) / w
+        planes = (torch.arange(d, device=device) - (d - 1) / 2) * ratio * base
+        depth = (slant.view(1, 1, 1, w) + planes.view(1, d, 1, 1)).expand(1, d, h, w)
+        depth = depth.contiguous()
+        for payload, dtype in (("f32", torch.float32), ("bf16", torch.bfloat16)):
+            feats = torch.randn((1, CAS_VIEWS, h, w, c), generator=gen, device=device).to(dtype)
+            args = (feats[:, 0].contiguous(), feats[:, 1:].contiguous(), mats, depth)
+            with torch.no_grad():
+                got = variance_volume(*args)
+                want = variance_volume_reference(*args)
+            err = (got.float() - want.float()).abs()
+            max_abs, mean_abs = err.max().item(), err.mean().item()
+            atol, rtol = CAS_TOL[payload]
+            outside = int((err > atol + rtol * want.float().abs()).sum())
+            label = f"D {d} C {c} at {h}x{w}, {payload}"
+            line = (f"{name} {label}: max_abs {max_abs:.3e} mean_abs {mean_abs:.3e} outside "
+                    f"{outside}")
+            summary["max_abs_err"] = max(summary["max_abs_err"], max_abs)
+            if payload == "bf16":
+                with torch.no_grad():
+                    ms = time_ms(lambda: variance_volume(*args))
+                    plain_ms = time_ms(lambda: variance_volume_reference(*args), reps=5,
+                                       warmup=1)
+                    dev_ms = device_ms(lambda: variance_volume(*args))
+                add_time(summary, name, args, got, 1, ms, plain_ms, dev_ms)
+                work_ms, by = bound(*kernel_work(name, args, got))
+                stage_bound_ms += work_ms
+                line += (f" | kernel {ms:.4f} ms device {fmt_ms(dev_ms)} plain {plain_ms:.4f} "
+                         f"ms bound {work_ms:.4f} ms ({by})")
+            print(line, flush=True)
+            if outside:
+                fail(f"{name} {label}: {outside} values outside atol {atol} + rtol {rtol}")
+            del got, want, err, feats, args
+        torch.cuda.empty_cache()
+    bound_ms, by = bound(summary["bytes"], summary["ops"])
+    print(f"{name} per map (3 stages): device {fmt_ms(summary['device_ms'])} bound "
+          f"{stage_bound_ms:.4f} ms stage by stage ({bound_ms:.4f} ms ({by}) over the summed "
+          f"work), event {summary['ms']:.4f} ms, plain {summary['plain_ms']:.4f} ms", flush=True)
+
+    model = build_model(Config(architecture="casmvsnet"), inference=True)
+    model.load_state_dict(seeded_state(CAS_SEED), strict=True)
+    estimator = DepthEstimator(model, device=device)
+    make_synthetic_scene(scratch, num_views=CAS_VIEWS, height=MAIN_H, width=MAIN_W,
+                         texture_scale=8.0)
+    dataset = MVSDataset(scratch, num_views=CAS_VIEWS - 1, image_extension=".png")
+    warm = next(iter(BatchLoader(dataset, batch_size=1, num_threads=1)))
+    noise = torch.Generator(device=device).manual_seed(123)
+    estimator(warm, noise)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(device)
+    request_ms = []
+
+    def timed(batch, generator):
+        start = time.perf_counter()
+        out = estimator(batch, generator)
+        request_ms.append((time.perf_counter() - start) * 1e3)
+        return out
+
+    timed.device = estimator.device
+    out_dir = tempfile.mkdtemp(prefix="out_", dir=scratch)
+    cuda_build.reset_launch_counts()
+    written = save_depth_maps(timed, BatchLoader(dataset, batch_size=1), out_dir, seed=0)
+    counts = cuda_build.launch_counts()
+    peak = torch.cuda.max_memory_allocated(device)
+    print(f"CasMVSNet bf16, {written} maps: launch counts {counts}; ms per map "
+          + " ".join(f"{t:.2f}" for t in request_ms) + f"; peak memory {peak / 2**20:.1f} MiB",
+          flush=True)
+    if written != CAS_VIEWS or counts != {name: 3 * written}:
+        fail(f"expected {CAS_VIEWS} maps and only K8, 3 a map: {written} maps, {counts}")
+    lo, hi = float(warm["depth_min"][0]), float(warm["depth_max"][0])
+    for i in range(written):
+        depth = read_pfm(os.path.join(out_dir, "depth_est", f"{i:08d}.pfm"))[..., 0]
+        if depth.shape != (MAIN_H, MAIN_W) or not np.isfinite(depth).all():
+            fail(f"CasMVSNet map {i}: shape {depth.shape}, finite {np.isfinite(depth).all()}")
+        if depth.min() < lo - 1e-3 * (hi - lo) or depth.max() > hi + 1e-3 * (hi - lo):
+            fail(f"CasMVSNet map {i}: depths {depth.min()}-{depth.max()} outside [{lo}, {hi}]")
+
+    events = whole_trace(lambda: estimator(warm, noise), CAS_TRACED)
+    if events is None:
+        print(f"{name} on the main path: device ms not measured (no whole trace)", flush=True)
+    else:
+        k8 = [dur for _, kernel, _, dur in events if "variance_volume_kernel" in kernel]
+        busy = sum(dur for _, _, _, dur in events)
+        print(f"{name} on the main path: {len(k8) / CAS_TRACED:g} launches a map, device "
+              f"{sum(k8) / CAS_TRACED / 1e3:.4f} ms a map of {busy / CAS_TRACED / 1e3:.4f} ms "
+              f"of device work, bound {stage_bound_ms:.4f} ms; {smi}", flush=True)
+        if len(k8) != 3 * CAS_TRACED:
+            fail(f"traced {len(k8)} K8 launches in {CAS_TRACED} requests, expected 3 each")
+    src, replaces = KERNEL_INFO[name]
+    print(json.dumps({"kernels": [{
+        "name": name, "route": "cuda", "source": src, "replaces": replaces,
+        "launches": counts[name], "max_abs_err": summary["max_abs_err"], "ms": summary["ms"],
+        "plain_ms": summary["plain_ms"], "bound_ms": bound_ms, "bound_by": by,
+        "library_ms": None, "timing": KERNEL_TIMING, "device_ms": summary["device_ms"]}]}),
+        flush=True)
+    return {name: summary}, counts
+
+
 def main() -> int:
     if not os.path.isdir(os.path.join(REPO, "patchmatchnet_torch")):
         fail("run from a checkout of the repository (patchmatchnet_torch/ not found)")
@@ -3438,6 +3605,16 @@ def main() -> int:
         host_library_path(scratch, smi, host)
     finally:
         shutil.rmtree(scratch, ignore_errors=True)
+
+    phase(f"CasMVSNet: K8 at the stage shapes of {MAIN_W}x{MAIN_H}, 1 + {CAS_VIEWS - 1} views, "
+          "and the bf16 model through DepthEstimator")
+    scratch = tempfile.mkdtemp(prefix="smoke_cas_", dir=os.path.join(REPO, "build"))
+    try:
+        cas_summary, cas_counts = casmvsnet_path(device, scratch, smi)
+    finally:
+        shutil.rmtree(scratch, ignore_errors=True)
+    summary.update(cas_summary)
+    counts.update(cas_counts)
 
     from patchmatchnet_torch.dev.roofline import bound
 

@@ -8,6 +8,7 @@ its subcommands, flag names, defaults and choices, plus `--device`).
     python -m patchmatchnet_torch export --checkpoint_path X --output Y.pt2
     python -m patchmatchnet_torch eval --input_type module --checkpoint_path Y.pt2 ...
     python -m patchmatchnet_torch colmap-import|colmap-export|convert-dtu|convert-eth3d|visualize
+    python -m patchmatchnet_torch casmvsnet --input_folder ... --checkpoint_path state.pt
 
 Every subcommand that computes runs on `--device cuda` (the default) and
 raises where CUDA is missing; `--device cpu` runs the kernels' plain
@@ -17,6 +18,11 @@ with `eval --input_type module` an artifact of `export`, whose input
 geometry is fixed: export's `--num_views` counts every view of a sample, so
 eval's `--num_views 5` (sources) at 1600x1200 takes an artifact exported
 with `--num_views 6 --height 1200 --width 1600`.
+`casmvsnet` writes CasMVSNet's depth and confidence maps as `eval
+--output_type depth` writes PatchmatchNet's (the port's own command: the
+JAX package has no CasMVSNet), from a state dict of cascade-stereo's
+parameter names (a `.pt` or `.ckpt` that `torch.load` reads, its "model"
+entry if it has one).
 `eval --no_derive_windows` is accepted and changes nothing: the port's
 kernels read the source features directly, with no windows. The five host
 tools run their `patchmatchnet_torch.tools` module's `main`.
@@ -172,6 +178,20 @@ def build_parser(command: str) -> argparse.ArgumentParser:
         p.add_argument("--height", type=int, default=864)
         p.add_argument("--width", type=int, default=1152)
         _add_device_arg(p)
+    elif command == "casmvsnet":
+        _add_data_args(p, eval_defaults=True)
+        p.set_defaults(num_views=4, architecture="casmvsnet", input_type="params")
+        p.add_argument("--checkpoint_path", type=str, required=True,
+                       help="a CasMVSNet state dict (cascade-stereo's names)")
+        p.add_argument("--precision", type=str, default="bf16", choices=["bf16", "f32"],
+                       help="bf16 features, cost volumes and 3D convolutions with f32 "
+                       "weights, hypotheses and regression, or full f32 (TF32 off)")
+        p.add_argument("--shape_bucket", type=int, default=0,
+                       help="round image sizes up to this multiple of 32 (edge-pad, crop "
+                       "the outputs back); 0 = exact shapes, which must be multiples of 32")
+        p.add_argument("--file_format", type=str, default=".pfm", choices=[".bin", ".pfm"])
+        p.set_defaults(seed=0)  # save_depth_maps' noise, which CasMVSNet does not draw
+        _add_device_arg(p)
     elif command == "convert":
         p.add_argument("--checkpoint_path", type=str, required=True,
                        help="params_*.ckpt of the original PyTorch PatchmatchNet")
@@ -183,7 +203,7 @@ def build_parser(command: str) -> argparse.ArgumentParser:
 
 
 def _config_from_args(args: argparse.Namespace) -> Config:
-    cfg = Config()
+    cfg = Config(architecture=getattr(args, "architecture", "patchmatchnet"))
     for section in (cfg.model, cfg.data, cfg.train, cfg.fuse):
         for name in vars(section):
             if hasattr(args, name):
@@ -249,8 +269,14 @@ def _write_depth_maps(group: Optional[Group], args: argparse.Namespace
         with open(args.checkpoint_path, "rb") as f:
             estimator = ModuleEstimator(f.read(), device)
     else:
-        model = build_model(_config_from_args(args), inference=True)
-        model.load_state_dict(load_any_checkpoint(args.checkpoint_path), strict=True)
+        cfg = _config_from_args(args)
+        model = build_model(cfg, inference=True)
+        if cfg.architecture != "casmvsnet":
+            state = load_any_checkpoint(args.checkpoint_path)
+        else:
+            state = torch.load(args.checkpoint_path, map_location="cpu", weights_only=True)
+            state = state.get("model", state)
+        model.load_state_dict(state, strict=True)
         estimator = DepthEstimator(model, device, bucket_multiple=args.shape_bucket)
     dataset = MVSDataset(args.input_folder, args.num_views, args.image_extension,
                          max_dim=args.image_max_dim, scan_list=args.scan_list,
@@ -302,6 +328,18 @@ def cmd_eval(argv: List[str]) -> Dict[str, int]:
     return _sum_launches(launches)
 
 
+def cmd_casmvsnet(argv: List[str]) -> None:
+    args = build_parser("casmvsnet").parse_args(argv)
+    if not args.output_folder:
+        args.output_folder = args.input_folder
+    start = time.perf_counter()
+    n, request_ms = _write_depth_maps(None, args)
+    seconds = time.perf_counter() - start
+    print(f"Wrote {n} CasMVSNet depth/confidence map pairs in {seconds:.3f} s "
+          f"({seconds * 1e3 / max(n, 1):.2f} ms per map; request ms: first "
+          f"{request_ms[0] if request_ms else 0.0:.2f} (set-up included))")
+
+
 def cmd_fuse(argv: List[str]) -> None:
     args = build_parser("fuse").parse_args(argv)
     if not args.output_folder:
@@ -339,6 +377,7 @@ COMMANDS: Dict[str, Callable[[List[str]], Optional[Dict[str, int]]]] = {
     "convert-dtu": convert_dtu.main,
     "convert-eth3d": convert_eth3d.main,
     "visualize": visualize.main,
+    "casmvsnet": cmd_casmvsnet,
 }
 
 

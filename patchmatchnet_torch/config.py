@@ -2,9 +2,10 @@
 (reference: `patchmatchnet_tpu/config.py`, same field names and defaults).
 
 One dataclass per concern: the per-stage model options and precisions, the
-data, training and fusion settings. Serialized as JSON next to checkpoints;
-`Config.load` reads a `config.json` written by either package (fields the
-port does not know are ignored)."""
+data, training and fusion settings, and the architecture (the port's
+own: the JAX package runs PatchmatchNet alone). Serialized as JSON next
+to checkpoints; `Config.load` reads a `config.json` written by either
+package (fields the port does not know are ignored)."""
 
 from __future__ import annotations
 
@@ -80,6 +81,10 @@ class Config:
     data: DataConfig = field(default_factory=DataConfig)
     train: TrainConfig = field(default_factory=TrainConfig)
     fuse: FuseConfig = field(default_factory=FuseConfig)
+    # the network `train.driver.build_model` builds: "patchmatchnet" (with
+    # `model`'s options) or "casmvsnet" (at its published settings;
+    # inference only)
+    architecture: str = "patchmatchnet"
 
     def to_json(self) -> str:
         return json.dumps(dataclasses.asdict(self), indent=2)
@@ -98,7 +103,8 @@ class Config:
         return Config(model=make(ModelConfig, raw.get("model", {})),
                       data=make(DataConfig, raw.get("data", {})),
                       train=make(TrainConfig, raw.get("train", {})),
-                      fuse=make(FuseConfig, raw.get("fuse", {})))
+                      fuse=make(FuseConfig, raw.get("fuse", {})),
+                      architecture=raw.get("architecture", "patchmatchnet"))
 
     def save(self, path: str) -> None:
         with open(path, "w") as f:

@@ -117,6 +117,14 @@ def kernel_work(name: str, args, out) -> tuple:
     if name == "neighbor_group_corr_backward":  # ref, (gx, gy), g, dout
         ref, (gx, gy), _, dout = args
         return nbytes(ref, gx, gy, dout, *out), gx.numel() * (sample_ops(ref.shape[-1]) + 8)
+    if name == "variance_volume":  # ref, src, mats, depth (K8)
+        ref, src, _, depth = args
+        c = ref.shape[-1]
+        # per sample and source view its warp (~20 operations) and per
+        # channel the bilinear tap and the two sums (11); per value the
+        # reference's square and the variance (5)
+        per_sample = src.shape[1] * (20 + 11 * c) + 5 * c
+        return nbytes(*args, out), depth.numel() * per_sample
     raise KeyError(name)
 
 

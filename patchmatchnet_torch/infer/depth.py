@@ -22,14 +22,13 @@ import torch
 
 from patchmatchnet_torch.compat.export import load_exported
 from patchmatchnet_torch.data.codecs import save_map
-from patchmatchnet_torch.models.net import PatchmatchNet
 from patchmatchnet_torch.models.patchmatch import INITIAL_NUM_SAMPLES
 from patchmatchnet_torch.ops.resize import resize_bilinear_maps, resize_nearest_maps
 from patchmatchnet_torch.utils.profiling import span
 
 
 class DepthEstimator:
-    """PatchmatchNet inference on one explicit device.
+    """PatchmatchNet (or CasMVSNet) inference on one explicit device.
 
     The model runs as it was built (any configuration; the command line
     builds it with `train.driver.build_model(cfg, inference=True)`), under
@@ -39,7 +38,7 @@ class DepthEstimator:
     (see the reference; the command line's `--shape_bucket`); 0 keeps exact
     shapes."""
 
-    def __init__(self, model: PatchmatchNet, device: Union[str, torch.device],
+    def __init__(self, model: torch.nn.Module, device: Union[str, torch.device],
                  bucket_multiple: int = 0):
         if bucket_multiple and bucket_multiple % 8 != 0:
             raise ValueError("bucket_multiple must be a multiple of 8")
@@ -50,6 +49,9 @@ class DepthEstimator:
         self.bucket_multiple = bucket_multiple
         # the dtype the model's first convolutions cast the images to
         self.staging_dtype = getattr(model, "compute_dtype", None) or torch.float32
+        # whether the model takes stage-3 noise (CasMVSNet's `takes_noise`
+        # is False: the generator is then left untouched)
+        self.takes_noise = getattr(model, "takes_noise", True)
         self.images_buffer: Optional[torch.Tensor] = None
         self.maps_buffer: Optional[torch.Tensor] = None
         self._images_sent: Optional[torch.cuda.Event] = None
@@ -98,7 +100,8 @@ class DepthEstimator:
         """batch: adjusted sample batch (see data.adjust_sample_dims), or a
         rank's rows of one (data parallel: the noise is then drawn for the
         global batch and sliced, as the JAX estimator shards it);
-        `generator` (on this estimator's device) draws the stage-3 noise.
+        `generator` (on this estimator's device) draws the stage-3 noise of a
+        model that takes it, and is left untouched otherwise.
         Returns (depth [B, Ho, Wo], confidence [B, Ho, Wo]) as numpy arrays at
         the original resolution."""
         with span("pmn.request"):
@@ -114,10 +117,13 @@ class DepthEstimator:
                 orig_h = int(np.asarray(batch.get("orig_height", h0)).reshape(-1)[0])
                 orig_w = int(np.asarray(batch.get("orig_width", w0)).reshape(-1)[0])
                 # the noise of the whole global batch, of which a rank's batch
-                # (`BatchLoader(shard=...)`) takes its rows
-                start, rows = batch.get("rows", (0, b))
-                noise = torch.rand((rows, INITIAL_NUM_SAMPLES, h // 8, w // 8),
-                                   generator=generator, device=self.device)[start:start + b]
+                # (`BatchLoader(shard=...)`) takes its rows; none for a model
+                # that draws nothing at random
+                noise = None
+                if self.takes_noise:
+                    start, rows = batch.get("rows", (0, b))
+                    noise = torch.rand((rows, INITIAL_NUM_SAMPLES, h // 8, w // 8),
+                                       generator=generator, device=self.device)[start:start + b]
             with span("pmn.request.copy_in") as copy_in:
                 allocs = self._buffers(images.shape, (b, orig_h, orig_w))
                 images = self._stage_images(images)
@@ -174,6 +180,7 @@ class ModuleEstimator(DepthEstimator):
         self.bucket_multiple = 0  # shapes are baked into the artifact
         self.exported = load_exported(blob, self.device)
         self.staging_dtype = torch.float32  # the artifact's images dtype
+        self.takes_noise = True
         self.images_buffer = self.maps_buffer = self._images_sent = None
 
     def _forward(self, images, intrinsics, extrinsics, depth_min, depth_max, noise):

@@ -13,6 +13,10 @@ casting, not autocast, so the CPU tests run the bf16 path too.
 The reference's per-position channel maps (1x1x1 Conv3d in the original
 model, Dense in the JAX package) are 1x1 convolutions here, applied to
 channel-first volumes [B, C, ...] by folding the trailing dims into 2-D.
+CasMVSNet's cost regularization has real 3D layers: `Conv3dBnReLU` and
+`Deconv3dBnReLU` (3x3x3, named as cascade-stereo's `Conv3d` and
+`Deconv3d` modules), which keep a `torch.channels_last_3d` input in that
+layout.
 
 BatchNorm follows the module's mode: `model.eval()` folds the running
 statistics to one multiply-add; `model.train()` normalizes with the batch
@@ -49,6 +53,17 @@ def conv2d(conv: nn.Conv2d, x: torch.Tensor, dtype: Optional[torch.dtype]) -> to
     return F.conv2d(
         x, conv.weight.to(x.dtype), bias, conv.stride, conv.padding, conv.dilation
     )
+
+
+def conv3d(conv: nn.Module, x: torch.Tensor, dtype: Optional[torch.dtype]) -> torch.Tensor:
+    """`conv` (an `nn.Conv3d` or `nn.ConvTranspose3d`) applied in the compute
+    dtype (input and weights cast to it)."""
+    x = cast(x, dtype)
+    bias = None if conv.bias is None else conv.bias.to(x.dtype)
+    if isinstance(conv, nn.ConvTranspose3d):
+        return F.conv_transpose3d(x, conv.weight.to(x.dtype), bias, conv.stride, conv.padding,
+                                  conv.output_padding, conv.groups, conv.dilation)
+    return F.conv3d(x, conv.weight.to(x.dtype), bias, conv.stride, conv.padding, conv.dilation)
 
 
 def channel_map(conv: nn.Conv2d, x: torch.Tensor, dtype: Optional[torch.dtype]) -> torch.Tensor:
@@ -189,3 +204,35 @@ class Dense1(nn.Module):
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         return channel_map(self.dense, x, self.dtype)
+
+
+class Conv3dBnReLU(nn.Module):
+    """3x3x3 Conv3d (no bias) + BatchNorm + ReLU over [B, C, D, H, W]
+    (cascade-stereo: module.py `Conv3d`)."""
+
+    def __init__(self, in_channels: int, out_channels: int, stride: int = 1,
+                 dtype: Optional[torch.dtype] = None):
+        super().__init__()
+        self.dtype = dtype
+        self.conv = nn.Conv3d(in_channels, out_channels, 3, stride=stride, padding=1, bias=False)
+        self.bn = BatchNorm(out_channels)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return F.relu(self.bn(conv3d(self.conv, x, self.dtype)))
+
+
+class Deconv3dBnReLU(nn.Module):
+    """3x3x3 ConvTranspose3d of stride 2 (padding 1, output padding 1, no
+    bias: each of D, H, W doubles) + BatchNorm + ReLU (cascade-stereo:
+    module.py `Deconv3d`)."""
+
+    def __init__(self, in_channels: int, out_channels: int,
+                 dtype: Optional[torch.dtype] = None):
+        super().__init__()
+        self.dtype = dtype
+        self.conv = nn.ConvTranspose3d(in_channels, out_channels, 3, stride=2, padding=1,
+                                       output_padding=1, bias=False)
+        self.bn = BatchNorm(out_channels)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return F.relu(self.bn(conv3d(self.conv, x, self.dtype)))

@@ -56,6 +56,8 @@ _SIGNATURES = {
     "pmn_gather_sublanes": [_P] * 3 + [_I] * 3 + [_P],
     # win, idx, out, N, R, P, C, bf16, stream
     "pmn_gather_rows": [_P] * 3 + [_I] * 5 + [_P],
+    # ref, src, mats, depth, out, B, V, D, H, W, C, bf16, stream
+    "pmn_variance_volume": [_P] * 5 + [_I] * 7 + [_P],
 }
 
 _lock = threading.Lock()

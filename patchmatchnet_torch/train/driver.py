@@ -39,6 +39,7 @@ from patchmatchnet_torch.compat import (
 from patchmatchnet_torch.config import Config
 from patchmatchnet_torch.data import BatchLoader, DTULegacyDataset, MVSDataset
 from patchmatchnet_torch.models import PatchmatchNet
+from patchmatchnet_torch.models.casmvsnet import CasMVSNet
 from patchmatchnet_torch.models.patchmatch import INITIAL_NUM_SAMPLES
 from patchmatchnet_torch.parallel import Group, launch, replicate, shard_batch
 from patchmatchnet_torch.train.loop import (
@@ -58,15 +59,24 @@ from patchmatchnet_torch.utils.profiling import PhaseTimer, torch_trace
 _NOISE_STRIDE = 1000003
 
 
-def build_model(cfg: Config, inference: bool = False) -> PatchmatchNet:
-    """The model of `cfg.model`'s per-stage options, in the precision of
-    `cfg.model.precision` (inference) or `train_precision` (training)."""
+def build_model(cfg: Config, inference: bool = False) -> torch.nn.Module:
+    """The model of `cfg.architecture`: PatchmatchNet with `cfg.model`'s
+    per-stage options, or CasMVSNet at its published settings (inference
+    only), in the precision of `cfg.model.precision` (inference) or
+    `train_precision` (training)."""
     knob = "precision" if inference else "train_precision"
     precision = getattr(cfg.model, knob)
     if precision not in ("bf16", "f32"):
         raise ValueError(f"{knob} must be bf16 or f32, got {precision!r}")
-    return PatchmatchNet(cfg.model,
-                         compute_dtype=torch.bfloat16 if precision == "bf16" else None)
+    dtype = torch.bfloat16 if precision == "bf16" else None
+    if cfg.architecture == "casmvsnet":
+        if not inference:
+            raise ValueError("CasMVSNet runs inference only: K8 has no backward")
+        return CasMVSNet(compute_dtype=dtype)
+    if cfg.architecture != "patchmatchnet":
+        raise ValueError(f"architecture must be patchmatchnet or casmvsnet, got "
+                         f"{cfg.architecture!r}")
+    return PatchmatchNet(cfg.model, compute_dtype=dtype)
 
 
 def load_any_checkpoint(path: str) -> Dict[str, torch.Tensor]:
