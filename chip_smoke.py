@@ -236,7 +236,8 @@ result line:
    shrink, with the library and with the twins in turns, both equal to
    `read_image`. One `host library:` JSON line. Prints the phase's seconds.
 
-19. CasMVSNet (`models/casmvsnet.py`) and K8 (`ops.variance_volume`):
+19. CasMVSNet (`models/casmvsnet.py`), K8 (`ops.variance_volume`) and K9
+   (`ops.prob_conv3d`):
    (a) K8 against its plain version (`variance_volume_reference`, one
    grid_sample per source view) on the card at the cell's stage shapes of
    1152x864 with 1 + 4 views (stage 1: D 48, C 32 at 216x288; stage 2: D
@@ -245,17 +246,23 @@ result line:
    payloads: every value within CAS_TOL of the plain one (atol + rtol x
    |plain|: one bf16 step; leaving a view out moves the O(1) variance by
    ~0.2), max and mean |kernel - plain| printed, and each
-   bf16 stage's event, device, plain and bound ms; (b) the bf16 model
-   from `build_model` (architecture "casmvsnet") with the plain
-   reference's seeded state (`pmnbench/reference_casmvsnet.py`
+   bf16 stage's event, device, plain and bound ms; (a') K9
+   (`ops.prob_conv3d`, the CostRegNets' head) against `F.conv3d` in f32
+   (TF32 off) at the heads' shapes (8 channels, D x H x W of 48 x 216 x
+   288, 32 x 432 x 576, 8 x 864 x 1152), bf16 and f32 payloads, every value
+   within HEAD_TOL; each bf16 stage's event and device ms beside its bound
+   and cuDNN's bf16 head on the same inputs (the plain version on the card);
+   (b) the bf16 model from `build_model` (architecture "casmvsnet") with the
+   plain reference's seeded state (`pmnbench/reference_casmvsnet.py`
    `seeded_state(CAS_SEED)`) through DepthEstimator and save_depth_maps on
-   a 5-view 1152x864 scene (5 maps of 1 + 4 views): the launch counts, zeroed
-   just before the run, must be K8 3 a map and nothing else; maps finite at
-   1152x864, depths inside the scene's range; ms per map, peak memory; then
-   K8's device ms per map from a trace of CAS_TRACED requests beside its
-   bound (the sum of the three stages' `dev.roofline.kernel_work`). Prints
-   a `kernels` JSON line of K8 alone; the last line's kernels line holds it
-   too.
+   a 5-view 1152x864 scene (5 maps of 1 + 4 views): the launch counts,
+   zeroed just before the run, must be K8 and K9 3 each a map and nothing
+   else; maps finite at 1152x864, depths inside the scene's range; ms per map, peak memory; then
+   K8's and K9's device ms per map from a trace of CAS_TRACED requests
+   beside their bounds (the sum of the three stages'
+   `dev.roofline.kernel_work`), no `implicit_convolveNd_sgemm` in it. Prints
+   a `kernels` JSON line of K8 and K9; the last line's kernels line holds
+   them too.
 
 The last line is {"ok": true, "device": {...}}; the line before it holds
 the per-kernel JSON summary.
@@ -319,6 +326,9 @@ MOVED_H, MOVED_W, MOVED_VIEWS = 64, 80, 3
 CAS_VIEWS, CAS_TRACED, CAS_SEED = 5, 3, 7
 CAS_STAGES = ((48, 32, 4, 4.0), (32, 16, 2, 2.0), (8, 8, 1, 1.0))
 CAS_TOL = {"f32": (1e-3, 1e-3), "bf16": (1e-2, 1e-2)}
+# K9 against F.conv3d in f32 (TF32 off) on the same inputs, (atol, rtol):
+# the same 216 products a voxel summed in another order
+HEAD_TOL = (1e-4, 1e-4)
 # the source views' x baselines of the parity rig (the first is the reference)
 RIG_BASELINES = (0.0, 0.35, -0.35, 0.7, -0.7)
 # the rig of phase 12 (a)'s kernel shapes: 1 + 5 views
@@ -369,8 +379,10 @@ KERNEL_INFO = {
                               "patchmatchnet_tpu/ops/pallas/windowed_similarity.py:942"),
     "coord_group_corr": ("patchmatchnet_torch/csrc/group_corr.cu",
                          "patchmatchnet_tpu/ops/pallas/windowed_similarity.py:375"),
-    # K8, CasMVSNet's variance cost volume: the JAX package has no such kernel
+    # K8, CasMVSNet's variance cost volume, and K9, its CostRegNets' head: the
+    # JAX package has no such kernel
     "variance_volume": ("patchmatchnet_torch/csrc/variance_volume.cu", None),
+    "prob_conv3d": ("patchmatchnet_torch/csrc/prob_conv3d.cu", None),
 }
 # The gather microbenchmarks' kernels, one entry per TPU kernel of
 # tools/dev/bench_gather.py: id -> (kernel, section of the port's tool,
@@ -3314,8 +3326,8 @@ def read_training_run(out: str, steps: int):
 
 
 def casmvsnet_path(device, scratch, smi):
-    """Phase 19: returns ({"variance_volume": summary entry}, {"variance_volume":
-    launches of the DepthEstimator run})."""
+    """Phase 19: returns ({"variance_volume", "prob_conv3d": summary entry},
+    {kernel: launches of the DepthEstimator run})."""
     import numpy as np
     import torch
 
@@ -3324,6 +3336,7 @@ def casmvsnet_path(device, scratch, smi):
     from patchmatchnet_torch.dev.roofline import bound, kernel_work
     from patchmatchnet_torch.infer import DepthEstimator, save_depth_maps
     from patchmatchnet_torch.ops import cuda_build
+    from patchmatchnet_torch.ops.prob_conv3d import prob_conv3d, prob_conv3d_reference
     from patchmatchnet_torch.ops.variance_volume import (
         variance_volume,
         variance_volume_reference,
@@ -3333,8 +3346,9 @@ def casmvsnet_path(device, scratch, smi):
     from patchmatchnet_torch.utils.trace import device_ms, fmt_ms, whole_trace
     from pmnbench.reference_casmvsnet import seeded_state
 
-    name = "variance_volume"
-    summary = new_summary([name])[name]
+    name, head = "variance_volume", "prob_conv3d"
+    summaries = new_summary([name, head])
+    summary = summaries[name]
     stage_bound_ms = 0.0  # each stage bound by its own resource
     gen = torch.Generator(device=device).manual_seed(19)
     base = (935.0 - 425.0) / 191
@@ -3387,6 +3401,8 @@ def casmvsnet_path(device, scratch, smi):
     print(f"{name} per map (3 stages): device {fmt_ms(summary['device_ms'])} bound "
           f"{stage_bound_ms:.4f} ms stage by stage ({bound_ms:.4f} ms ({by}) over the summed "
           f"work), event {summary['ms']:.4f} ms, plain {summary['plain_ms']:.4f} ms", flush=True)
+    head_bound_ms, head_library_ms, head_library_dev = head_stages(
+        device, smi, summaries[head], prob_conv3d, prob_conv3d_reference)
 
     model = build_model(Config(architecture="casmvsnet"), inference=True)
     model.load_state_dict(seeded_state(CAS_SEED), strict=True)
@@ -3416,8 +3432,9 @@ def casmvsnet_path(device, scratch, smi):
     print(f"CasMVSNet bf16, {written} maps: launch counts {counts}; ms per map "
           + " ".join(f"{t:.2f}" for t in request_ms) + f"; peak memory {peak / 2**20:.1f} MiB",
           flush=True)
-    if written != CAS_VIEWS or counts != {name: 3 * written}:
-        fail(f"expected {CAS_VIEWS} maps and only K8, 3 a map: {written} maps, {counts}")
+    if written != CAS_VIEWS or counts != {name: 3 * written, head: 3 * written}:
+        fail(f"expected {CAS_VIEWS} maps and only K8 and K9, 3 each a map: {written} maps, "
+             f"{counts}")
     lo, hi = float(warm["depth_min"][0]), float(warm["depth_max"][0])
     for i in range(written):
         depth = read_pfm(os.path.join(out_dir, "depth_est", f"{i:08d}.pfm"))[..., 0]
@@ -3435,16 +3452,90 @@ def casmvsnet_path(device, scratch, smi):
         print(f"{name} on the main path: {len(k8) / CAS_TRACED:g} launches a map, device "
               f"{sum(k8) / CAS_TRACED / 1e3:.4f} ms a map of {busy / CAS_TRACED / 1e3:.4f} ms "
               f"of device work, bound {stage_bound_ms:.4f} ms; {smi}", flush=True)
-        if len(k8) != 3 * CAS_TRACED:
-            fail(f"traced {len(k8)} K8 launches in {CAS_TRACED} requests, expected 3 each")
-    src, replaces = KERNEL_INFO[name]
-    print(json.dumps({"kernels": [{
-        "name": name, "route": "cuda", "source": src, "replaces": replaces,
-        "launches": counts[name], "max_abs_err": summary["max_abs_err"], "ms": summary["ms"],
-        "plain_ms": summary["plain_ms"], "bound_ms": bound_ms, "bound_by": by,
-        "library_ms": None, "timing": KERNEL_TIMING, "device_ms": summary["device_ms"]}]}),
-        flush=True)
-    return {name: summary}, counts
+        k9 = [dur for _, kernel, _, dur in events if "prob_conv3d_kernel" in kernel]
+        sgemm = [dur for _, kernel, _, dur in events if "implicit_convolveNd_sgemm" in kernel]
+        print(f"{head} on the main path: {len(k9) / CAS_TRACED:g} launches a map, device "
+              f"{sum(k9) / CAS_TRACED / 1e3:.4f} ms a map, bound {head_bound_ms:.4f} ms; "
+              f"implicit_convolveNd_sgemm {len(sgemm)} launches", flush=True)
+        if len(k8) != 3 * CAS_TRACED or len(k9) != 3 * CAS_TRACED or sgemm:
+            fail(f"traced {len(k8)} K8 and {len(k9)} K9 launches in {CAS_TRACED} requests, "
+                 f"expected 3 each, and {len(sgemm)} of cuDNN's generic kernel, expected 0")
+    lines = []
+    for kernel, library_ms, library_dev in ((name, None, None),
+                                            (head, head_library_ms, head_library_dev)):
+        s = summaries[kernel]
+        src, replaces = KERNEL_INFO[kernel]
+        kernel_bound_ms, kernel_by = bound(s["bytes"], s["ops"])
+        lines.append({
+            "name": kernel, "route": "cuda", "source": src, "replaces": replaces,
+            "launches": counts[kernel], "max_abs_err": s["max_abs_err"], "ms": s["ms"],
+            "plain_ms": s["plain_ms"], "bound_ms": kernel_bound_ms, "bound_by": kernel_by,
+            "library_ms": library_ms, "library_device_ms": library_dev,
+            "timing": KERNEL_TIMING, "device_ms": s["device_ms"]})
+    print(json.dumps({"kernels": lines}), flush=True)
+    return summaries, counts
+
+
+def head_stages(device, smi, summary, prob_conv3d, prob_conv3d_reference):
+    """Phase 19 (a'): K9 against `F.conv3d` in f32 (TF32 off) at the stage
+    shapes of the cell's CostRegNets' heads, bf16 and f32 payloads, and
+    each bf16 stage's event and device ms beside its bound and cuDNN's
+    bf16 head (the plain version on the card, the path K9 replaced).
+    Returns (bound ms, cuDNN's event ms, cuDNN's device ms) a map."""
+    import torch
+    import torch.nn.functional as F
+
+    from patchmatchnet_torch.dev.roofline import bound, kernel_work
+    from patchmatchnet_torch.utils.trace import device_ms, fmt_ms
+
+    name = "prob_conv3d"
+    gen = torch.Generator(device=device).manual_seed(24)
+    bound_ms = library_ms = 0.0
+    library_dev = 0.0
+    print(f"K9 against F.conv3d in f32 at the CostRegNets' head shapes; {smi}", flush=True)
+    for d, _, scale, _ in CAS_STAGES:
+        h, w = MAIN_H // scale, MAIN_W // scale
+        weight = 0.1 * torch.randn((1, 8, 3, 3, 3), generator=gen, device=device)
+        for payload, dtype in (("f32", torch.float32), ("bf16", torch.bfloat16)):
+            x = torch.randn((1, 8, d, h, w), generator=gen, device=device).to(dtype)
+            x = x.to(memory_format=torch.channels_last_3d)
+            allow = torch.backends.cudnn.allow_tf32
+            torch.backends.cudnn.allow_tf32 = False
+            with torch.no_grad():
+                got = prob_conv3d(x, weight)
+                want = F.conv3d(x.float(), weight, None, 1, 1)[:, 0]
+            torch.backends.cudnn.allow_tf32 = allow
+            err = (got - want).abs()
+            max_abs = err.max().item()
+            atol, rtol = HEAD_TOL
+            outside = int((err > atol + rtol * want.abs()).sum())
+            label = f"D {d} at {h}x{w}, {payload}"
+            line = f"{name} {label}: max_abs {max_abs:.3e} outside {outside}"
+            summary["max_abs_err"] = max(summary["max_abs_err"], max_abs)
+            if payload == "bf16":
+                args = (x, weight)
+                with torch.no_grad():
+                    ms = time_ms(lambda: prob_conv3d(*args))
+                    dev_ms = device_ms(lambda: prob_conv3d(*args))
+                    cudnn_ms = time_ms(lambda: prob_conv3d_reference(*args), reps=5, warmup=1)
+                    cudnn_dev = device_ms(lambda: prob_conv3d_reference(*args))
+                add_time(summary, name, args, got, 1, ms, cudnn_ms, dev_ms)
+                work_ms, by = bound(*kernel_work(name, args, got))
+                bound_ms += work_ms
+                library_ms += cudnn_ms
+                library_dev = None if cudnn_dev is None or library_dev is None else (
+                    library_dev + cudnn_dev)
+                line += (f" | kernel {ms:.4f} ms device {fmt_ms(dev_ms)} bound {work_ms:.4f} "
+                         f"ms ({by}) | cuDNN bf16 {cudnn_ms:.4f} ms device {fmt_ms(cudnn_dev)}")
+            print(line, flush=True)
+            if outside:
+                fail(f"{name} {label}: {outside} values outside atol {atol} + rtol {rtol}")
+            del got, want, err, x
+        torch.cuda.empty_cache()
+    print(f"{name} per map (3 stages): device {fmt_ms(summary['device_ms'])} event "
+          f"{summary['ms']:.4f} ms, bound {bound_ms:.4f} ms; cuDNN bf16 event {library_ms:.4f} "
+          f"ms device {fmt_ms(library_dev)}", flush=True)
+    return bound_ms, library_ms, library_dev
 
 
 def main() -> int:
@@ -3606,8 +3697,8 @@ def main() -> int:
     finally:
         shutil.rmtree(scratch, ignore_errors=True)
 
-    phase(f"CasMVSNet: K8 at the stage shapes of {MAIN_W}x{MAIN_H}, 1 + {CAS_VIEWS - 1} views, "
-          "and the bf16 model through DepthEstimator")
+    phase(f"CasMVSNet: K8 and K9 at the stage shapes of {MAIN_W}x{MAIN_H}, 1 + "
+          f"{CAS_VIEWS - 1} views, and the bf16 model through DepthEstimator")
     scratch = tempfile.mkdtemp(prefix="smoke_cas_", dir=os.path.join(REPO, "build"))
     try:
         cas_summary, cas_counts = casmvsnet_path(device, scratch, smi)

@@ -125,6 +125,9 @@ def kernel_work(name: str, args, out) -> tuple:
         # reference's square and the variance (5)
         per_sample = src.shape[1] * (20 + 11 * c) + 5 * c
         return nbytes(*args, out), depth.numel() * per_sample
+    if name == "prob_conv3d":  # x [B, 8, D, H, W], weight [1, 8, 3, 3, 3] (K9)
+        x, weight = args
+        return nbytes(x, weight, out), out.numel() * 2 * weight.numel()
     raise KeyError(name)
 
 

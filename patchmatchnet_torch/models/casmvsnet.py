@@ -12,8 +12,8 @@ U-Net (`share_cr=False`):
   (depth_max - depth_min) / 191, DTU's spacing of 192 planes;
 - K8 (`ops.variance_volume`) builds the variance cost volume over the
   views [B, D, h, w, C];
-- the CostRegNet turns it into one logit a plane; softmax over the planes
-  and depth = sum p d.
+- the CostRegNet turns it into one logit a plane, its head `prob` K9
+  (`ops.prob_conv3d`); softmax over the planes and depth = sum p d.
 The confidence is stage 3's probability of the 4 planes about the regressed
 plane index.
 
@@ -24,7 +24,8 @@ so a released state dict loads (`load_state_dict` drops BatchNorm's
 
 `compute_dtype=torch.bfloat16` runs the features, the variance volume and
 the 3D convolutions in bf16 (cuDNN accumulates in f32); the hypotheses,
-softmax, regression and confidence stay f32. The f32 mode turns TF32 off
+softmax, regression and confidence stay f32, and so do K9's weights and
+logits on the card. The f32 mode turns TF32 off
 for its duration. Inference only: the model is built in eval mode and K8
 has no backward. Departures from the published code: K8's warp reads zero
 for a point at or behind a source camera (pz <= 1e-3); stage 2's
@@ -47,9 +48,9 @@ from patchmatchnet_torch.models.layers import (
     Conv3dBnReLU,
     Deconv3dBnReLU,
     conv2d,
-    conv3d,
 )
 from patchmatchnet_torch.models.net import full_f32
+from patchmatchnet_torch.ops import prob_conv3d as head_op
 from patchmatchnet_torch.ops import variance_volume as volume_op
 from patchmatchnet_torch.ops.resize import upsample_nearest_x2
 from patchmatchnet_torch.ops.warp import warp_proj_coeffs
@@ -126,7 +127,7 @@ class CostRegNet(nn.Module):
         x = conv4 + self.conv7(x)
         x = conv2 + self.conv9(x)
         x = conv0 + self.conv11(x)
-        return conv3d(self.prob, x, self.dtype)[:, 0].float()
+        return head_op.prob_conv3d(x, self.prob.weight)
 
 
 def confidence_of(prob: torch.Tensor) -> torch.Tensor:
@@ -210,8 +211,10 @@ class CasMVSNet(nn.Module):
                 with span(f"{name}.volume") as counters:
                     volume = volume_op.variance_volume(ref, src, mats, hyp)
                     counters.add(voxels=hyp.numel(), bytes=volume.nbytes)
-                with span(f"{name}.regularize"):
+                with span(f"{name}.regularize") as counters:
                     logits = self.cost_regularization[i](volume.permute(0, 4, 1, 2, 3))
+                    counters.add(head_voxels=logits.numel() if head_op.uses_kernel(volume)
+                                 else 0)
                 with span(f"{name}.regress"):
                     prob = torch.softmax(logits, dim=1)
                     depth = (prob * hyp).sum(1)

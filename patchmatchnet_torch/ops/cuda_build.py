@@ -58,6 +58,8 @@ _SIGNATURES = {
     "pmn_gather_rows": [_P] * 3 + [_I] * 5 + [_P],
     # ref, src, mats, depth, out, B, V, D, H, W, C, bf16, stream
     "pmn_variance_volume": [_P] * 5 + [_I] * 7 + [_P],
+    # x, weight, out, B, D, H, W, bf16, stream
+    "pmn_prob_conv3d": [_P] * 3 + [_I] * 5 + [_P],
 }
 
 _lock = threading.Lock()

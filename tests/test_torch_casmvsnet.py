@@ -7,12 +7,16 @@ against the plain reference `pmnbench/reference_casmvsnet.py`, on the CPU at
   within what bf16 payloads move a depth (stated below);
 - K8's plain version against the reference's per-view `homo_warping`, with
   samples off the source image;
+- K9's plain version (the head) against `nn.Conv3d`, and its device
+  symbol in the benchmark's `convolutions` group;
 - the 3D blocks against `nn.Conv3d`, `nn.ConvTranspose3d`, `nn.BatchNorm3d`;
 - `DepthEstimator`, `build_model`, the `casmvsnet` command, the spans, the
   seeded state's sharpness and the shape check.
 
 Marked `cuda` (skipped without a card): K8's kernel against its plain
-version. On a machine with a GPU:
+version; K9's kernel against `F.conv3d` in f32 at the cell's stage shapes
+and two ragged ones; the bf16 model on the card, its launches and its
+`head_voxels`. On a machine with a GPU:
     python -m pytest tests/test_torch_casmvsnet.py -q -m cuda --noconftest
 This file imports no JAX.
 """
@@ -33,6 +37,12 @@ from patchmatchnet_torch.infer import DepthEstimator, save_depth_maps
 from patchmatchnet_torch.models.casmvsnet import CasMVSNet, CostRegNet
 from patchmatchnet_torch.models.layers import Conv3dBnReLU, Deconv3dBnReLU
 from patchmatchnet_torch.ops import cuda_build
+from patchmatchnet_torch.ops.prob_conv3d import (
+    KERNEL,
+    prob_conv3d,
+    prob_conv3d_reference,
+    uses_kernel,
+)
 from patchmatchnet_torch.ops.variance_volume import variance_volume, variance_volume_reference
 from patchmatchnet_torch.ops.warp import warp_proj_coeffs
 from patchmatchnet_torch.train.driver import build_model
@@ -40,6 +50,7 @@ from patchmatchnet_torch.utils.profiling import reset_spans, span_summary, trace
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 sys.path.insert(0, REPO)
+from pmnbench import devtrace  # noqa: E402
 from pmnbench import reference_casmvsnet as reference  # noqa: E402
 from pmnbench import scenes  # noqa: E402
 
@@ -321,7 +332,59 @@ def test_spans_and_counters(state, inputs):
         voxels = d * (H // scale) * (W // scale)
         numbers = spans[f"pmn.cas.stage{s}.volume"].numbers
         assert numbers == {"voxels": voxels, "bytes": voxels * c * 2}
+        # the CPU runs the head's plain version: no voxel of the kernel
+        assert spans[f"pmn.cas.stage{s}.regularize"].numbers == {"head_voxels": 0}
         assert stages[s]["prob"].shape == (1, d, H // scale, W // scale)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_head_plain_version_is_the_published_conv(dtype):
+    """K9's plain version: `nn.Conv3d(8, 1, 3, padding=1, bias=False)` in
+    the input's dtype, its channel widened to f32; no backward."""
+    gen = torch.Generator().manual_seed(2)
+    x = torch.randn((2, 8, 5, 7, 9), generator=gen).to(dtype)
+    x = x.to(memory_format=torch.channels_last_3d)
+    conv = nn.Conv3d(8, 1, 3, padding=1, bias=False)
+    with torch.no_grad():
+        got = prob_conv3d(x, conv.weight)
+        want = conv.to(dtype)(x)[:, 0].float()
+    assert not uses_kernel(x)
+    assert got.dtype == torch.float32 and got.shape == (2, 5, 7, 9)
+    torch.testing.assert_close(got, want, atol=0, rtol=0)
+    with pytest.raises(ValueError, match="no backward"):
+        prob_conv3d(x, nn.Conv3d(8, 1, 3, padding=1, bias=False).weight)
+
+
+def test_cost_regnet_ends_in_the_head(state):
+    """The CostRegNet's logits are K9 (its plain version here) over what
+    the last block and its skip leave."""
+    net = CostRegNet(8).eval()
+    net.load_state_dict({k[len("cost_regularization.2."):]: v for k, v in state.items()
+                         if k.startswith("cost_regularization.2.")})
+    x = torch.randn((1, 8, 8, 16, 16)).to(memory_format=torch.channels_last_3d)
+    seen = {}
+    net.conv11.register_forward_hook(lambda m, i, o: seen.setdefault("conv11", o))
+    net.conv0.register_forward_hook(lambda m, i, o: seen.setdefault("conv0", o))
+    with torch.no_grad():
+        logits = net(x)
+        head_in = seen["conv0"] + seen["conv11"]
+        torch.testing.assert_close(logits, prob_conv3d_reference(head_in, net.prob.weight),
+                                   atol=0, rtol=0)
+
+
+@pytest.mark.parametrize("dtype", ["__nv_bfloat16", "float"])
+def test_head_kernel_symbol_is_a_convolution(dtype):
+    """K9's device symbol, as the wrapper and `csrc/prob_conv3d.cu` name it,
+    falls in the benchmark's `convolutions` group (`pmnbench/kernel_groups/`),
+    where the roofline counts the head's bound."""
+    with open(os.path.join(REPO, "patchmatchnet_torch", "csrc", "prob_conv3d.cu")) as f:
+        source = f.read()
+    namespace, function = KERNEL.split("::")
+    assert f"namespace {namespace} {{" in source
+    assert f"    {function}(const T* __restrict__ x" in source
+    traced = (f"void {KERNEL}<{dtype}, 2>({dtype} const*, float const*, float*, int, int, "
+              "int, int)")
+    assert devtrace.group_of(traced, devtrace.kernel_groups()) == "convolutions"
 
 
 def test_reference_imports_torch_alone():
@@ -367,3 +430,75 @@ def test_kernel_matches_plain_version(device, dtype, channels):
     # result, one bf16 step either way
     tol = 1e-3 if dtype == torch.float32 else 1e-2
     torch.testing.assert_close(out.float(), plain.float(), atol=tol, rtol=tol)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("shape", [(1, 48, 216, 288), (1, 32, 432, 576), (1, 8, 864, 1152),
+                                   (2, 11, 45, 83), (1, 9, 19, 33)],
+                         ids=["stage1", "stage2", "stage3", "b2-ragged", "ragged"])
+def test_head_kernel_matches_conv3d(device, dtype, shape):
+    """K9 against `F.conv3d` in f32 (TF32 off) on the same inputs: the
+    cell's three stage shapes, a batch of 2 whose D crosses a block's chunk
+    of planes and whose H and W are multiples of no tile, and one more
+    ragged shape. One launch a call."""
+    b, d, h, w = shape
+    gen = torch.Generator(device=device).manual_seed(d * h)
+    x = torch.randn((b, 8, d, h, w), generator=gen, device=device).to(dtype)
+    x = x.to(memory_format=torch.channels_last_3d)
+    weight = 0.1 * torch.randn((1, 8, 3, 3, 3), generator=gen, device=device)
+    before = cuda_build.launch_counts().get("prob_conv3d", 0)
+    with torch.no_grad():
+        out = prob_conv3d(x, weight)
+    torch.cuda.synchronize()
+    assert cuda_build.launch_counts()["prob_conv3d"] == before + 1
+    assert out.dtype == torch.float32 and out.shape == (b, d, h, w) and out.is_contiguous()
+    allow = torch.backends.cudnn.allow_tf32
+    torch.backends.cudnn.allow_tf32 = False
+    try:
+        with torch.no_grad():
+            want = torch.nn.functional.conv3d(x.float(), weight, None, 1, 1)[:, 0]
+    finally:
+        torch.backends.cudnn.allow_tf32 = allow
+    # the same 216 f32 products a voxel summed in another order (outputs
+    # ~1.5, each sum's rounding ~1e-6)
+    torch.testing.assert_close(out, want, atol=1e-4, rtol=1e-4)
+
+
+@pytest.mark.cuda
+def test_head_kernel_refuses_other_layouts(device):
+    weight = torch.randn((1, 8, 3, 3, 3), device=device)
+    x = torch.randn((1, 8, 4, 6, 8), device=device)  # contiguous, not channels last
+    with pytest.raises(ValueError, match="channels_last_3d"):
+        prob_conv3d(x, weight)
+    with pytest.raises(ValueError, match=r"\[B, 8, D, H, W\]"):
+        prob_conv3d(torch.randn((1, 4, 4, 6, 8), device=device), weight)
+    with pytest.raises(TypeError, match="dtype"):
+        prob_conv3d(x.to(memory_format=torch.channels_last_3d), weight.bfloat16())
+
+
+@pytest.mark.cuda
+def test_model_on_the_card_runs_k8_and_k9(device, state, inputs, ref_out):
+    """The bf16 model on the card: K8 and K9 once a stage and each stage's
+    `head_voxels` D h w; its depth within bf16 of the f32 reference, as on
+    the CPU."""
+    model = _model(state, torch.bfloat16).to(device)
+    cuda_build.reset_launch_counts()
+    previous = trace_spans(True)
+    reset_spans()
+    try:
+        with torch.no_grad():
+            depth, _, _ = model(*(t.to(device) for t in inputs))
+        torch.cuda.synchronize()
+        spans = span_summary()
+    finally:
+        trace_spans(previous)
+        reset_spans()
+    assert cuda_build.launch_counts() == {"variance_volume": 3, "prob_conv3d": 3}
+    for s, d in zip((1, 2, 3), (48, 32, 8)):
+        scale = (4, 2, 1)[s - 1]
+        head = spans[f"pmn.cas.stage{s}.regularize"].numbers["head_voxels"]
+        assert head == d * (H // scale) * (W // scale)
+    gap = (depth.cpu() - ref_out[0]).abs().flatten() / RANGE
+    assert float(gap.median()) < BF16_MEDIAN
+    assert float(torch.quantile(gap, 0.9)) < BF16_P90
