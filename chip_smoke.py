@@ -1418,7 +1418,7 @@ def training_path(device, scratch):
         save_train_checkpoint,
         train_step,
     )
-    from patchmatchnet_torch.train.driver import load_model_weights, step_noise
+    from patchmatchnet_torch.train.driver import load_any_checkpoint, step_noise
 
     scene = os.path.join(scratch, "train_scene")
     make_synthetic_scene(scene, num_views=TRAIN_SCENE_VIEWS, height=TRAIN_H, width=TRAIN_W,
@@ -1431,7 +1431,7 @@ def training_path(device, scratch):
 
     def fresh():
         model = PatchmatchNet(compute_dtype=torch.bfloat16).to(device)
-        load_model_weights(model, CKPT)
+        model.load_state_dict(load_any_checkpoint(CKPT), strict=True)
         return model, make_optimizer(model.parameters(), 1e-3)
 
     model, opt = fresh()
@@ -2564,7 +2564,7 @@ def device_busy_per_forward(device, smi) -> None:
         train_batch,
     )
     from patchmatchnet_torch.dev.roofline import GEOMETRIES, count
-    from patchmatchnet_torch.models.patchmatch import INITIAL_NUM_SAMPLES
+    from patchmatchnet_torch.models import PatchmatchNet
     from patchmatchnet_torch.train import batch_to_device, make_optimizer, train_step
 
     model = load_model(True, device)
@@ -2586,8 +2586,7 @@ def device_busy_per_forward(device, smi) -> None:
     gen = torch.Generator(device=device).manual_seed(2)
 
     def step():
-        noise = torch.rand((batch, INITIAL_NUM_SAMPLES, h // 8, w // 8), generator=gen,
-                           device=device)
+        noise = torch.rand(PatchmatchNet.noise_shape(batch, h, w), generator=gen, device=device)
         return train_step(model, optimizer, tensors, TRAIN_LR, noise)
 
     ms = time_ms(step, reps=5, warmup=2)

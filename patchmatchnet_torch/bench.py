@@ -79,7 +79,6 @@ import torch
 
 from patchmatchnet_torch.compat import read_flax_msgpack, state_dict_from_jax
 from patchmatchnet_torch.models import PatchmatchNet
-from patchmatchnet_torch.models.patchmatch import INITIAL_NUM_SAMPLES
 from patchmatchnet_torch.ops import cuda_build
 from patchmatchnet_torch.train.loop import batch_to_device, make_optimizer, train_step
 
@@ -115,7 +114,7 @@ def build_inputs(batch, num_views, height, width, seed=0):
         extrinsics[:, v, 0, 3] = 0.5 * (v - (num_views - 1) / 2)
     depth_min = np.full(batch, 425.0, np.float32)
     depth_max = np.full(batch, 935.0, np.float32)
-    noise = rng.random((batch, 48, height // 8, width // 8)).astype(np.float32)
+    noise = rng.random(PatchmatchNet.noise_shape(batch, height, width)).astype(np.float32)
     return images, intrinsics, extrinsics, depth_min, depth_max, noise
 
 
@@ -250,8 +249,7 @@ def bench_train(args, emit: bool = True) -> float:
     generator = torch.Generator(device=device).manual_seed(2)
 
     def step() -> float:
-        noise = torch.rand((b, INITIAL_NUM_SAMPLES, h // 8, w // 8), generator=generator,
-                           device=device)
+        noise = torch.rand(PatchmatchNet.noise_shape(b, h, w), generator=generator, device=device)
         metrics, _ = train_step(model, optimizer, tensors, TRAIN_LR, noise)
         return float(metrics["loss"])
 

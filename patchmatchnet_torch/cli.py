@@ -58,7 +58,7 @@ from patchmatchnet_torch.tools import (
     convert_eth3d,
     visualize,
 )
-from patchmatchnet_torch.train.driver import build_model, load_any_checkpoint, run_training
+from patchmatchnet_torch.train.driver import build_model, load_weights, run_training
 from patchmatchnet_torch.utils.profiling import reset_spans, span_records, trace_spans
 
 # Options of the JAX command line that the port has not yet, and the
@@ -271,12 +271,7 @@ def _write_depth_maps(group: Optional[Group], args: argparse.Namespace
     else:
         cfg = _config_from_args(args)
         model = build_model(cfg, inference=True)
-        if cfg.architecture != "casmvsnet":
-            state = load_any_checkpoint(args.checkpoint_path)
-        else:
-            state = torch.load(args.checkpoint_path, map_location="cpu", weights_only=True)
-            state = state.get("model", state)
-        model.load_state_dict(state, strict=True)
+        model.load_state_dict(load_weights(cfg, args.checkpoint_path), strict=True)
         estimator = DepthEstimator(model, device, bucket_multiple=args.shape_bucket)
     dataset = MVSDataset(args.input_folder, args.num_views, args.image_extension,
                          max_dim=args.image_max_dim, scan_list=args.scan_list,
@@ -358,7 +353,7 @@ def cmd_convert(argv: List[str]) -> None:
 def cmd_export(argv: List[str]) -> None:
     args = build_parser("export").parse_args(argv)
     start = time.perf_counter()
-    blob = export_inference(load_any_checkpoint(args.checkpoint_path), args.batch,
+    blob = export_inference(load_weights(Config(), args.checkpoint_path), args.batch,
                             args.num_views, args.height, args.width, device=args.device)
     with open(args.output, "wb") as f:
         f.write(blob)

@@ -28,7 +28,6 @@ import torch
 import torch.nn as nn
 
 from patchmatchnet_torch.models.net import PatchmatchNet, full_f32
-from patchmatchnet_torch.models.patchmatch import INITIAL_NUM_SAMPLES
 
 ARTIFACT_META = "pmn_export.json"
 
@@ -74,7 +73,7 @@ def export_inference(
     model = model.to(device).eval()
     shapes = ((batch, num_views, height, width, 3), (batch, num_views, 3, 3),
               (batch, num_views, 4, 4), (batch,), (batch,),
-              (batch, INITIAL_NUM_SAMPLES, height // 8, width // 8))
+              PatchmatchNet.noise_shape(batch, height, width))
     args = tuple(torch.zeros(s, dtype=torch.float32, device=device) for s in shapes)
     with torch.no_grad():
         program = torch.export.export(_InferenceForward(model), args, strict=False)

@@ -81,9 +81,8 @@ class Config:
     data: DataConfig = field(default_factory=DataConfig)
     train: TrainConfig = field(default_factory=TrainConfig)
     fuse: FuseConfig = field(default_factory=FuseConfig)
-    # the network `train.driver.build_model` builds: "patchmatchnet" (with
-    # `model`'s options) or "casmvsnet" (at its published settings;
-    # inference only)
+    # a key of `train.driver.ARCHITECTURES`: "patchmatchnet" (with `model`'s
+    # options) or "casmvsnet" (at its published settings; inference only)
     architecture: str = "patchmatchnet"
 
     def to_json(self) -> str:

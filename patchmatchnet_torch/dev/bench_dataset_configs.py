@@ -38,7 +38,7 @@ import torch
 
 from patchmatchnet_torch.bench import build_inputs, load_model, resolve_device, synchronize
 from patchmatchnet_torch.infer import DepthEstimator
-from patchmatchnet_torch.models.patchmatch import INITIAL_NUM_SAMPLES
+from patchmatchnet_torch.models import PatchmatchNet
 
 # name: (num_views, [per-view (H, W) after max_dim scaling], bucket)
 # ETH3D: 6048x4032 sensors -> 2688x1792 at max_dim 2688; some scans mix
@@ -90,7 +90,7 @@ def run_config(name: str, iters: int = 4, device: str = "cuda", bf16: bool = Tru
         img_p = np.pad(images, ((0, 0), (0, 0), (0, hb - h), (0, wb - w), (0, 0)), mode="edge")
         args = [torch.from_numpy(a).to(dev) for a in (img_p, intr, extr, dmin, dmax)]
         noises = torch.from_numpy(np.random.default_rng(7).random(
-            (iters, 1, INITIAL_NUM_SAMPLES, hb // 8, wb // 8), np.float32)).to(dev)
+            (iters, *PatchmatchNet.noise_shape(1, hb, wb)), np.float32)).to(dev)
         with torch.inference_mode():
             depth, confidence = est._forward(*args, noises[0])
             maps.append((depth[0, :h, :w].float().cpu().numpy(),

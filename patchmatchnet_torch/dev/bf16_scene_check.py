@@ -26,7 +26,7 @@ import torch
 
 from patchmatchnet_torch.bench import forward, load_model, resolve_device
 from patchmatchnet_torch.data import PLANE_Z, MVSDataset, make_synthetic_scene
-from patchmatchnet_torch.models.patchmatch import INITIAL_NUM_SAMPLES
+from patchmatchnet_torch.models import PatchmatchNet
 
 
 def run(height: int = 288, width: int = 400, num_views: int = 5, device: str = "cuda",
@@ -43,7 +43,7 @@ def run(height: int = 288, width: int = 400, num_views: int = 5, device: str = "
         s["images"], s["intrinsics"], s["extrinsics"], s["depth_min"], s["depth_max"])]
     h, w = s["images"].shape[1:3]
     noise = torch.from_numpy(np.random.default_rng(0).random(
-        (1, INITIAL_NUM_SAMPLES, h // 8, w // 8)).astype(np.float32)).to(dev)
+        PatchmatchNet.noise_shape(1, h, w)).astype(np.float32)).to(dev)
 
     gt = float(PLANE_Z)
     report: Dict[str, object] = {"device": str(dev), "shape": (h, w), "num_views": num_views,

@@ -52,7 +52,6 @@ import torch
 from patchmatchnet_torch.bench import resolve_device, seeded_model
 from patchmatchnet_torch.data import PLANE_Z, MVSDataset, adjust_sample_dims, make_synthetic_scene
 from patchmatchnet_torch.models import PatchmatchNet
-from patchmatchnet_torch.models.patchmatch import INITIAL_NUM_SAMPLES
 from patchmatchnet_torch.ops import cuda_build
 from patchmatchnet_torch.train import batch_to_device, make_optimizer, train_step
 
@@ -88,8 +87,7 @@ def step_noise(batch: Dict[str, torch.Tensor], step: int, noise_seed: int = 1000
     images = batch["images"]
     b, _, h, w = images.shape[:4]
     gen = torch.Generator(device=images.device).manual_seed(noise_seed + step)
-    return torch.rand((b, INITIAL_NUM_SAMPLES, h // 8, w // 8), generator=gen,
-                      device=images.device)
+    return torch.rand(PatchmatchNet.noise_shape(b, h, w), generator=gen, device=images.device)
 
 
 def _launch_diff(after: Dict[str, int], before: Dict[str, int], steps: int) -> Dict[str, float]:

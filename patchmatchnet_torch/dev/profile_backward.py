@@ -201,7 +201,7 @@ def profile_steps(device, steps: int, scratch: str, calls_file=None):
     from patchmatchnet_torch.data import BatchLoader, MVSDataset, make_synthetic_scene
     from patchmatchnet_torch.models import PatchmatchNet
     from patchmatchnet_torch.train import batch_to_device, make_optimizer, train_step
-    from patchmatchnet_torch.train.driver import load_model_weights, step_noise
+    from patchmatchnet_torch.train.driver import load_any_checkpoint, step_noise
 
     scene = os.path.join(scratch, "scene")
     make_synthetic_scene(scene, num_views=SCENE_VIEWS, height=TRAIN_H, width=TRAIN_W,
@@ -210,7 +210,7 @@ def profile_steps(device, steps: int, scratch: str, calls_file=None):
                          shuffle=True, drop_last=True, seed=1)
     batch = batch_to_device(next(iter(loader)), device)
     model = PatchmatchNet(compute_dtype=torch.bfloat16).to(device)
-    load_model_weights(model, CKPT)
+    model.load_state_dict(load_any_checkpoint(CKPT), strict=True)
     opt = make_optimizer(model.parameters(), 1e-3)
     noise = step_noise(batch, 1, 1)
 

@@ -69,7 +69,7 @@ from patchmatchnet_torch.models.layers import BatchNorm
 from patchmatchnet_torch.ops import cuda_build
 from patchmatchnet_torch.parallel import launch, replicate, shard_batch
 from patchmatchnet_torch.train import batch_to_device, make_optimizer, train_step
-from patchmatchnet_torch.train.driver import load_model_weights
+from patchmatchnet_torch.train.driver import load_any_checkpoint
 from patchmatchnet_torch.utils.profiling import reset_spans, span_records, trace_spans
 from patchmatchnet_torch.utils.trace import busy_union_us, trace_device_events
 
@@ -107,7 +107,7 @@ def plain_f32_step(rows: int, device: torch.device):
     """The 1-rank f32 step of `train_batch(rows)` on `device`."""
     batch = train_batch(rows)
     model = PatchmatchNet().to(device)
-    load_model_weights(model, CKPT)
+    model.load_state_dict(load_any_checkpoint(CKPT), strict=True)
     return f32_step(model, model, batch_to_device(batch, device),
                     torch.from_numpy(batch["noise"]).to(device))
 
@@ -123,13 +123,13 @@ def train_rank(group, rows: int, timed_steps: int) -> Dict:
     tensors = batch_to_device(local, group.device)
     noise = torch.from_numpy(local["noise"]).to(group.device)
     model = PatchmatchNet().to(group.device)
-    load_model_weights(model, CKPT)
+    model.load_state_dict(load_any_checkpoint(CKPT), strict=True)
     out = {"f32": f32_step(model, replicate(model, group), tensors, noise,
                            group.process_group)}
     if not timed_steps:
         return out
     model = PatchmatchNet(compute_dtype=torch.bfloat16).to(group.device)
-    load_model_weights(model, CKPT)
+    model.load_state_dict(load_any_checkpoint(CKPT), strict=True)
     optimizer = make_optimizer(model.parameters(), 1e-3)
     net = replicate(model, group)
 
@@ -140,7 +140,7 @@ def train_rank(group, rows: int, timed_steps: int) -> Dict:
     plain_step = None
     if group.world_size == 1:
         plain = PatchmatchNet(compute_dtype=torch.bfloat16).to(group.device)
-        load_model_weights(plain, CKPT)
+        plain.load_state_dict(load_any_checkpoint(CKPT), strict=True)
         plain_optimizer = make_optimizer(plain.parameters(), 1e-3)
 
         def plain_step():
@@ -232,7 +232,7 @@ def eval_rank(group, scene: str, out_root: str, batch_size: int, refs_list,
     `scene` or the scans of `scan_list` under it: {refs: (maps written,
     host ms per request (its `pmn.request` spans), launches, seconds)}."""
     model = PatchmatchNet(compute_dtype=torch.bfloat16)
-    load_model_weights(model, CKPT)
+    model.load_state_dict(load_any_checkpoint(CKPT), strict=True)
     estimator = DepthEstimator(model, group.device)
     runs = {}
     for refs in ([batch_size] if warm_up else []) + list(refs_list):
@@ -259,7 +259,7 @@ def one_rank_maps(scene: str, out: str, batch_size: int, refs: int, device,
     """The 1-rank bf16 maps of the first `refs` references at `batch_size`
     (of `scene` or the scans of `scan_list` under it), written under `out`."""
     model = PatchmatchNet(compute_dtype=torch.bfloat16)
-    load_model_weights(model, CKPT)
+    model.load_state_dict(load_any_checkpoint(CKPT), strict=True)
     dataset = MVSDataset(scene, VIEWS - 1, ".png", scan_list=scan_list)
     dataset.metas = dataset.metas[:refs]
     save_depth_maps(DepthEstimator(model, device), BatchLoader(dataset, batch_size), out, seed=0)

@@ -22,7 +22,7 @@ import torch
 
 from patchmatchnet_torch.compat.export import load_exported
 from patchmatchnet_torch.data.codecs import save_map
-from patchmatchnet_torch.models.patchmatch import INITIAL_NUM_SAMPLES
+from patchmatchnet_torch.models.net import PatchmatchNet
 from patchmatchnet_torch.ops.resize import resize_bilinear_maps, resize_nearest_maps
 from patchmatchnet_torch.utils.profiling import span
 
@@ -48,10 +48,8 @@ class DepthEstimator:
         self.model = model.to(self.device).eval()
         self.bucket_multiple = bucket_multiple
         # the dtype the model's first convolutions cast the images to
-        self.staging_dtype = getattr(model, "compute_dtype", None) or torch.float32
-        # whether the model takes stage-3 noise (CasMVSNet's `takes_noise`
-        # is False: the generator is then left untouched)
-        self.takes_noise = getattr(model, "takes_noise", True)
+        self.staging_dtype = model.compute_dtype or torch.float32
+        self.noise_shape = model.noise_shape  # (batch, h, w) -> shape, or None: no noise
         self.images_buffer: Optional[torch.Tensor] = None
         self.maps_buffer: Optional[torch.Tensor] = None
         self._images_sent: Optional[torch.cuda.Event] = None
@@ -100,8 +98,8 @@ class DepthEstimator:
         """batch: adjusted sample batch (see data.adjust_sample_dims), or a
         rank's rows of one (data parallel: the noise is then drawn for the
         global batch and sliced, as the JAX estimator shards it);
-        `generator` (on this estimator's device) draws the stage-3 noise of a
-        model that takes it, and is left untouched otherwise.
+        `generator` (on this estimator's device) draws the stage-3 noise of
+        `noise_shape`, and is left untouched when that is None.
         Returns (depth [B, Ho, Wo], confidence [B, Ho, Wo]) as numpy arrays at
         the original resolution."""
         with span("pmn.request"):
@@ -119,11 +117,10 @@ class DepthEstimator:
                 # the noise of the whole global batch, of which a rank's batch
                 # (`BatchLoader(shard=...)`) takes its rows; none for a model
                 # that draws nothing at random
-                noise = None
-                if self.takes_noise:
-                    start, rows = batch.get("rows", (0, b))
-                    noise = torch.rand((rows, INITIAL_NUM_SAMPLES, h // 8, w // 8),
-                                       generator=generator, device=self.device)[start:start + b]
+                start, rows = batch.get("rows", (0, b))
+                shape = self.noise_shape(rows, h, w)
+                noise = None if shape is None else torch.rand(
+                    shape, generator=generator, device=self.device)[start:start + b]
             with span("pmn.request.copy_in") as copy_in:
                 allocs = self._buffers(images.shape, (b, orig_h, orig_w))
                 images = self._stage_images(images)
@@ -180,7 +177,7 @@ class ModuleEstimator(DepthEstimator):
         self.bucket_multiple = 0  # shapes are baked into the artifact
         self.exported = load_exported(blob, self.device)
         self.staging_dtype = torch.float32  # the artifact's images dtype
-        self.takes_noise = True
+        self.noise_shape = PatchmatchNet.noise_shape  # an artifact is always PatchmatchNet
         self.images_buffer = self.maps_buffer = self._images_sent = None
 
     def _forward(self, images, intrinsics, extrinsics, depth_min, depth_max, noise):

@@ -148,8 +148,6 @@ class CasMVSNet(nn.Module):
     to fine); `compute_dtype` None runs f32, bf16 runs bf16 payloads. Built
     in eval mode."""
 
-    takes_noise = False  # `DepthEstimator` draws no stage-3 noise for it
-
     def __init__(self, compute_dtype: Optional[torch.dtype] = None):
         super().__init__()
         self.compute_dtype = compute_dtype
@@ -161,6 +159,10 @@ class CasMVSNet(nn.Module):
     def load_state_dict(self, state_dict, strict: bool = True, assign: bool = False):
         state = {k: v for k, v in state_dict.items() if not k.endswith(".num_batches_tracked")}
         return super().load_state_dict(state, strict=strict, assign=assign)
+
+    @staticmethod
+    def noise_shape(batch: int, height: int, width: int) -> None:
+        """None: CasMVSNet draws nothing at random."""
 
     def forward(self, images: torch.Tensor, intrinsics: torch.Tensor,
                 extrinsics: torch.Tensor, depth_min: torch.Tensor, depth_max: torch.Tensor,

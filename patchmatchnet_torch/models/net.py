@@ -71,6 +71,11 @@ class PatchmatchNet(nn.Module):
         self.upsample_net = Refinement(dtype=compute_dtype)
         self.eval()
 
+    @staticmethod
+    def noise_shape(batch: int, height: int, width: int) -> Tuple[int, int, int, int]:
+        """The stage-3 noise of `batch` maps of height x width: [B, 48, H/8, W/8]."""
+        return (batch, INITIAL_NUM_SAMPLES, height // 8, width // 8)
+
     def forward(
         self,
         images: torch.Tensor,
@@ -78,8 +83,7 @@ class PatchmatchNet(nn.Module):
         extrinsics: torch.Tensor,
         depth_min: torch.Tensor,
         depth_max: torch.Tensor,
-        init_noise: Optional[torch.Tensor] = None,
-        generator: Optional[torch.Generator] = None,
+        init_noise: torch.Tensor,
     ) -> Tuple[torch.Tensor, torch.Tensor, Dict[int, List[torch.Tensor]]]:
         """Args:
             images: [B, N, H, W, 3] f32 or already in the compute dtype,
@@ -87,9 +91,8 @@ class PatchmatchNet(nn.Module):
             intrinsics: [B, N, 3, 3] at this resolution; extrinsics
                 [B, N, 4, 4] world-to-camera.
             depth_min / depth_max: [B] scene depth range.
-            init_noise: [B, 48, H/8, W/8] uniform noise for the stage-3
-                initialization; drawn from `generator` when None.
-            generator: the torch.Generator for that draw.
+            init_noise: [B, 48, H/8, W/8] (`noise_shape`) uniform noise for
+                the stage-3 initialization.
 
         Returns (refined depth [B, H, W], photometric confidence [B, H, W],
         {stage: [per-iteration depths]}) with stage 0 the refined depth.
@@ -97,21 +100,14 @@ class PatchmatchNet(nn.Module):
         ctx = full_f32() if self.compute_dtype is None else contextlib.nullcontext()
         with ctx:
             return self._forward(images, intrinsics, extrinsics, depth_min,
-                                 depth_max, init_noise, generator)
+                                 depth_max, init_noise)
 
-    def _forward(self, images, intrinsics, extrinsics, depth_min, depth_max,
-                 init_noise, generator):
+    def _forward(self, images, intrinsics, extrinsics, depth_min, depth_max, init_noise):
         b, n, h, w = images.shape[:4]
         if h % 8 or w % 8:
             raise ValueError(f"PatchmatchNet needs H, W multiples of 8 (got {h}x{w})")
-        dev = images.device
         depth_min = depth_min.float().reshape(b)
         depth_max = depth_max.float().reshape(b)
-        if init_noise is None:
-            if generator is None:
-                raise ValueError("pass init_noise or a torch.Generator")
-            init_noise = torch.rand((b, INITIAL_NUM_SAMPLES, h // 8, w // 8),
-                                    generator=generator, device=dev)
 
         # Step 1: features as NHWC buffers (channels_last convs), one list
         # of N views [B, h, w, C] per stage.

@@ -26,7 +26,7 @@ noise, so their step is the one-device step of the global batch.
 from __future__ import annotations
 
 import os
-from typing import Any, Dict, List, Optional
+from typing import Any, Callable, Dict, List, Optional, Tuple
 
 import torch
 import torch.distributed as dist
@@ -40,7 +40,6 @@ from patchmatchnet_torch.config import Config
 from patchmatchnet_torch.data import BatchLoader, DTULegacyDataset, MVSDataset
 from patchmatchnet_torch.models import PatchmatchNet
 from patchmatchnet_torch.models.casmvsnet import CasMVSNet
-from patchmatchnet_torch.models.patchmatch import INITIAL_NUM_SAMPLES
 from patchmatchnet_torch.parallel import Group, launch, replicate, shard_batch
 from patchmatchnet_torch.train.loop import (
     batch_to_device,
@@ -59,24 +58,10 @@ from patchmatchnet_torch.utils.profiling import PhaseTimer, torch_trace
 _NOISE_STRIDE = 1000003
 
 
-def build_model(cfg: Config, inference: bool = False) -> torch.nn.Module:
-    """The model of `cfg.architecture`: PatchmatchNet with `cfg.model`'s
-    per-stage options, or CasMVSNet at its published settings (inference
-    only), in the precision of `cfg.model.precision` (inference) or
-    `train_precision` (training)."""
-    knob = "precision" if inference else "train_precision"
-    precision = getattr(cfg.model, knob)
-    if precision not in ("bf16", "f32"):
-        raise ValueError(f"{knob} must be bf16 or f32, got {precision!r}")
-    dtype = torch.bfloat16 if precision == "bf16" else None
-    if cfg.architecture == "casmvsnet":
-        if not inference:
-            raise ValueError("CasMVSNet runs inference only: K8 has no backward")
-        return CasMVSNet(compute_dtype=dtype)
-    if cfg.architecture != "patchmatchnet":
-        raise ValueError(f"architecture must be patchmatchnet or casmvsnet, got "
-                         f"{cfg.architecture!r}")
-    return PatchmatchNet(cfg.model, compute_dtype=dtype)
+def read_state_dict(path: str) -> Dict[str, torch.Tensor]:
+    """A `torch.save` state dict: the file's dict, or its "model" entry."""
+    state = torch.load(path, map_location="cpu", weights_only=True)
+    return state.get("model", state)
 
 
 def load_any_checkpoint(path: str) -> Dict[str, torch.Tensor]:
@@ -90,13 +75,45 @@ def load_any_checkpoint(path: str) -> Dict[str, torch.Tensor]:
         return state_dict_from_jax({k: tree[k] for k in ("params", "batch_stats") if k in tree})
     if path.endswith(".ckpt"):
         return convert_torch_checkpoint(path)
-    state = torch.load(path, map_location="cpu", weights_only=True)
-    return state.get("model", state)
+    return read_state_dict(path)
 
 
-def load_model_weights(model: PatchmatchNet, path: str) -> None:
-    """Warm start `model` from any checkpoint `load_any_checkpoint` reads."""
-    model.load_state_dict(load_any_checkpoint(path), strict=True)
+def _casmvsnet(cfg: Config, dtype: Optional[torch.dtype], inference: bool) -> CasMVSNet:
+    if not inference:
+        raise ValueError("CasMVSNet runs inference only: K8 has no backward")
+    return CasMVSNet(compute_dtype=dtype)
+
+
+# each network the port serves: (build(cfg, dtype, inference), read(checkpoint path))
+ARCHITECTURES: Dict[str, Tuple[Callable[..., torch.nn.Module], Callable[[str], Dict]]] = {
+    "patchmatchnet": (lambda cfg, dtype, _: PatchmatchNet(cfg.model, compute_dtype=dtype),
+                      load_any_checkpoint),
+    "casmvsnet": (_casmvsnet, read_state_dict),
+}
+
+
+def _architecture(cfg: Config):
+    if cfg.architecture not in ARCHITECTURES:
+        raise ValueError(f"architecture must be one of {', '.join(ARCHITECTURES)}, got "
+                         f"{cfg.architecture!r}")
+    return ARCHITECTURES[cfg.architecture]
+
+
+def build_model(cfg: Config, inference: bool = False) -> torch.nn.Module:
+    """The model of `cfg.architecture`: PatchmatchNet with `cfg.model`'s
+    options, or CasMVSNet (inference only), in the precision of
+    `cfg.model.precision` (inference) or `train_precision` (training)."""
+    knob = "precision" if inference else "train_precision"
+    precision = getattr(cfg.model, knob)
+    if precision not in ("bf16", "f32"):
+        raise ValueError(f"{knob} must be bf16 or f32, got {precision!r}")
+    build, _ = _architecture(cfg)
+    return build(cfg, torch.bfloat16 if precision == "bf16" else None, inference)
+
+
+def load_weights(cfg: Config, path: str) -> Dict[str, torch.Tensor]:
+    """The state dict in checkpoint `path`, read by `cfg.architecture`'s reader."""
+    return _architecture(cfg)[1](path)
 
 
 def step_noise(batch: Dict[str, torch.Tensor], seed: int, step: int,
@@ -108,8 +125,7 @@ def step_noise(batch: Dict[str, torch.Tensor], seed: int, step: int,
     world = 1 if group is None else group.world_size
     dev = batch["images"].device
     gen = torch.Generator(device=dev).manual_seed(seed * _NOISE_STRIDE + step)
-    noise = torch.rand((b * world, INITIAL_NUM_SAMPLES, h // 8, w // 8), generator=gen,
-                       device=dev)
+    noise = torch.rand(PatchmatchNet.noise_shape(b * world, h, w), generator=gen, device=dev)
     return noise if group is None else shard_batch({"noise": noise}, group)["noise"]
 
 
@@ -186,7 +202,7 @@ def _train(group: Optional[Group], cfg: Config, profile_dir: str) -> List[Dict[s
         _, last_epoch = load_train_checkpoint(ckpt_path, model, optimizer)
         start_epoch = last_epoch + 1
     elif t.checkpoint_path and os.path.isfile(t.checkpoint_path):
-        load_model_weights(model, t.checkpoint_path)
+        model.load_state_dict(load_weights(cfg, t.checkpoint_path), strict=True)
     net = model if group is None else replicate(model, group)
     process_group = None if group is None else group.process_group
     if lead:

@@ -10,8 +10,9 @@ against the plain reference `pmnbench/reference_casmvsnet.py`, on the CPU at
 - K9's plain version (the head) against `nn.Conv3d`, and its device
   symbol in the benchmark's `convolutions` group;
 - the 3D blocks against `nn.Conv3d`, `nn.ConvTranspose3d`, `nn.BatchNorm3d`;
-- `DepthEstimator`, `build_model`, the `casmvsnet` command, the spans, the
-  seeded state's sharpness and the shape check.
+- `DepthEstimator`, `build_model`, `load_weights` (both architectures), the
+  `casmvsnet` command, the spans, the seeded state's sharpness and the
+  shape check.
 
 Marked `cuda` (skipped without a card): K8's kernel against its plain
 version; K9's kernel against `F.conv3d` in f32 at the cell's stage shapes
@@ -45,7 +46,7 @@ from patchmatchnet_torch.ops.prob_conv3d import (
 )
 from patchmatchnet_torch.ops.variance_volume import variance_volume, variance_volume_reference
 from patchmatchnet_torch.ops.warp import warp_proj_coeffs
-from patchmatchnet_torch.train.driver import build_model
+from patchmatchnet_torch.train.driver import build_model, load_weights
 from patchmatchnet_torch.utils.profiling import reset_spans, span_summary, trace_spans
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
@@ -247,7 +248,7 @@ def _batch(inputs, orig=None):
 def test_depth_estimator_draws_no_noise(state, inputs):
     model = _model(state, torch.bfloat16)
     estimator = DepthEstimator(model, "cpu")
-    assert estimator.takes_noise is False
+    assert model.noise_shape(1, H, W) is None
     gen = torch.Generator().manual_seed(11)
     before = gen.get_state()
     depth, conf = estimator(_batch(inputs, orig=(2 * H, 2 * W)), gen)
@@ -271,6 +272,23 @@ def test_build_model_dispatches_on_the_architecture():
         build_model(Config(architecture="mvsnet"), inference=True)
     assert type(build_model(Config(), inference=True)).__name__ == "PatchmatchNet"
     assert Config.from_json(cfg.to_json()) == cfg
+
+
+@pytest.mark.parametrize("architecture", ["patchmatchnet", "casmvsnet"])
+def test_load_weights_reads_a_saved_state(architecture, tmp_path):
+    """A `torch.save` state dict, plain and under "model", read back through
+    the architecture's reader, loads into a new model of it."""
+    cfg = Config(architecture=architecture)
+    state = build_model(cfg, inference=True).state_dict()
+    for i, saved in enumerate((state, {"model": state})):
+        path = str(tmp_path / f"state_{i}.pt")
+        torch.save(saved, path)
+        read = load_weights(cfg, path)
+        assert list(read) == list(state)
+        assert all(torch.equal(read[k], v) for k, v in state.items())
+        build_model(cfg, inference=True).load_state_dict(read, strict=True)
+    with pytest.raises(ValueError, match="patchmatchnet, casmvsnet"):
+        load_weights(Config(architecture="mvsnet"), path)
 
 
 @pytest.fixture(scope="module")

@@ -8,7 +8,8 @@ On the CPU (unpinned buffers, the same code): the staging cast equals
 infinities and the largest finite value (a NaN stays NaN); the maps equal
 those of the model called on the f32 images with the same noise, to the
 bit, for an f32 and a bf16 model, with and without bucket padding; a
-result never shares memory with the buffers and survives the next
+request draws one `PatchmatchNet.noise_shape` of the padded size from its
+generator; a result never shares memory with the buffers and survives the next
 request; same-shape requests reuse the buffers and a new shape allocates
 them again.
 
@@ -72,6 +73,8 @@ def assert_same_bits(got: torch.Tensor, want: torch.Tensor) -> None:
 class Recorder(nn.Module):
     """A stand-in model that keeps the images it was handed and returns
     maps of their size made from their first channel."""
+
+    noise_shape = staticmethod(PatchmatchNet.noise_shape)
 
     def __init__(self, compute_dtype):
         super().__init__()
@@ -145,6 +148,18 @@ def test_maps_equal_the_model_on_f32_images(state_dict, dtype, bucket, b):
     assert depth.shape == conf.shape == (b, h, w)
     np.testing.assert_array_equal(depth, want_depth)
     np.testing.assert_array_equal(conf, want_conf)
+
+
+@pytest.mark.parametrize("bucket", [0, 32])
+def test_request_draws_the_models_noise(state_dict, bucket):
+    """A PatchmatchNet request consumes the generator as one draw of
+    `PatchmatchNet.noise_shape` at the padded size does."""
+    estimator = DepthEstimator(_model(state_dict, torch.bfloat16), "cpu", bucket_multiple=bucket)
+    gen, want = torch.Generator().manual_seed(4), torch.Generator().manual_seed(4)
+    estimator(plane_batch(1, 3, 56, 72), gen)
+    hm, wm = (64, 96) if bucket else (56, 72)
+    torch.rand(PatchmatchNet.noise_shape(1, hm, wm), generator=want)
+    assert torch.equal(gen.get_state(), want.get_state())
 
 
 def test_results_are_the_callers_own(state_dict):

@@ -88,7 +88,6 @@ def profile_dtype(name, state_dict, batch, device, forwards, out_dir):
 
     from patchmatchnet_torch.infer import DepthEstimator
     from patchmatchnet_torch.models import PatchmatchNet
-    from patchmatchnet_torch.models.patchmatch import INITIAL_NUM_SAMPLES
     from patchmatchnet_torch.ops import cuda_build
     from patchmatchnet_torch.utils.trace import (
         busy_union_us,
@@ -113,7 +112,7 @@ def profile_dtype(name, state_dict, batch, device, forwards, out_dir):
 
     inputs = [torch.as_tensor(batch[k]).to(device).float()
               for k in ("images", "intrinsics", "extrinsics", "depth_min", "depth_max")]
-    noise = torch.rand((1, INITIAL_NUM_SAMPLES, H // 8, W // 8), generator=gen, device=device)
+    noise = torch.rand(PatchmatchNet.noise_shape(1, H, W), generator=gen, device=device)
 
     def forward():
         with torch.inference_mode():
