@@ -236,8 +236,8 @@ result line:
    shrink, with the library and with the twins in turns, both equal to
    `read_image`. One `host library:` JSON line. Prints the phase's seconds.
 
-19. CasMVSNet (`models/casmvsnet.py`), K8 (`ops.variance_volume`) and K9
-   (`ops.prob_conv3d`):
+19. CasMVSNet (`models/casmvsnet.py`), K8 (`ops.variance_volume`), K9
+   (`ops.prob_conv3d`) and K10 (`ops.conv3d_block`):
    (a) K8 against its plain version (`variance_volume_reference`, one
    grid_sample per source view) on the card at the cell's stage shapes of
    1152x864 with 1 + 4 views (stage 1: D 48, C 32 at 216x288; stage 2: D
@@ -252,16 +252,33 @@ result line:
    288, 32 x 432 x 576, 8 x 864 x 1152), bf16 and f32 payloads, every value
    within HEAD_TOL; each bf16 stage's event and device ms beside its bound
    and cuDNN's bf16 head on the same inputs (the plain version on the card);
+   (a'') K10 at every U-Net block of the cell's three CostRegNets (stage
+   1: 32 channels, D 48 at 216x288; stage 2: 16, D 32 at 432x576; stage 3:
+   8, D 8 at 864x1152), each block fed the one before it as the network
+   runs, random weights and BatchNorm statistics: every value within
+   BLOCK_TOL of the kernel's arithmetic in f32 (`conv3d_block_unrounded`), max abs
+   against it and against the bf16 plain version printed; each block's
+   event and device ms beside its bound and the plain version's (cuDNN's
+   convolution and its glue, the path K10 replaced: `library_ms`), that
+   device time split into the convolution's kernels and the glue's, by
+   kernel name; totals a map; then each block on f32 payloads (the f32
+   model's K10, on the CUDA cores) against the plain version in f32 (TF32
+   off), every value within BLOCK_F32_TOL, its device ms beside its f32
+   bound and the plain version's;
    (b) the bf16 model from `build_model` (architecture "casmvsnet") with the
    plain reference's seeded state (`pmnbench/reference_casmvsnet.py`
    `seeded_state(CAS_SEED)`) through DepthEstimator and save_depth_maps on
    a 5-view 1152x864 scene (5 maps of 1 + 4 views): the launch counts,
-   zeroed just before the run, must be K8 and K9 3 each a map and nothing
-   else; maps finite at 1152x864, depths inside the scene's range; ms per map, peak memory; then
-   K8's and K9's device ms per map from a trace of CAS_TRACED requests
-   beside their bounds (the sum of the three stages'
-   `dev.roofline.kernel_work`), no `implicit_convolveNd_sgemm` in it. Prints
-   a `kernels` JSON line of K8 and K9; the last line's kernels line holds
+   zeroed just before the run, must be K8 and K9 3 each and K10 30 a map and
+   nothing else; maps finite at 1152x864, depths inside the scene's range; ms per map, peak
+   memory; then K8's, K9's and K10's device ms per map from a trace of
+   CAS_TRACED requests beside their bounds (the sum of the three stages'
+   `dev.roofline.kernel_work`), no `implicit_convolveNd_sgemm` and no
+   `dgrad` kernel in it; (c) the f32 model (TF32 off) through
+   DepthEstimator on CAS_F32_MAPS maps: K8 and K9 3 each and K10 30 a map
+   and nothing else, depths inside the range, and in a trace of one request
+   30 launches of K10's f32 kernel and no `dgrad` kernel. Prints a `kernels`
+   JSON line of K8, K9 and K10 (bf16); the last line's kernels line holds
    them too.
 
 The last line is {"ok": true, "device": {...}}; the line before it holds
@@ -323,12 +340,24 @@ MOVED_H, MOVED_W, MOVED_VIEWS = 64, 80, 3
 # its plain version, (atol, rtol) of every value by payload (those of
 # tests/test_torch_casmvsnet.py): f32 the sums' order, bf16 one rounding
 # step either way
-CAS_VIEWS, CAS_TRACED, CAS_SEED = 5, 3, 7
+CAS_VIEWS, CAS_TRACED, CAS_SEED, CAS_F32_MAPS = 5, 3, 7, 2
 CAS_STAGES = ((48, 32, 4, 4.0), (32, 16, 2, 2.0), (8, 8, 1, 1.0))
 CAS_TOL = {"f32": (1e-3, 1e-3), "bf16": (1e-2, 1e-2)}
 # K9 against F.conv3d in f32 (TF32 off) on the same inputs, (atol, rtol):
 # the same 216 products a voxel summed in another order
 HEAD_TOL = (1e-4, 1e-4)
+# K10 against its arithmetic in f32 (`conv3d_block_unrounded`), (atol, rtol): one
+# bf16 rounding of the result and the f32 sums' order (those of
+# tests/test_torch_conv3d_block.py)
+BLOCK_TOL = (2e-3, 2 ** -8)
+# K10 on f32 payloads against the plain version in f32 (TF32 off): the same
+# products summed in another order
+BLOCK_F32_TOL = (1e-4, 1e-4)
+# a CostRegNet's blocks in the order it runs them: (block, its input, its skip)
+COST_REG_BLOCKS = (("conv0", "x", None), ("conv1", "conv0", None), ("conv2", "conv1", None),
+                   ("conv3", "conv2", None), ("conv4", "conv3", None), ("conv5", "conv4", None),
+                   ("conv6", "conv5", None), ("conv7", "conv6", "conv4"),
+                   ("conv9", "conv7", "conv2"), ("conv11", "conv9", "conv0"))
 # the source views' x baselines of the parity rig (the first is the reference)
 RIG_BASELINES = (0.0, 0.35, -0.35, 0.7, -0.7)
 # the rig of phase 12 (a)'s kernel shapes: 1 + 5 views
@@ -383,6 +412,8 @@ KERNEL_INFO = {
     # JAX package has no such kernel
     "variance_volume": ("patchmatchnet_torch/csrc/variance_volume.cu", None),
     "prob_conv3d": ("patchmatchnet_torch/csrc/prob_conv3d.cu", None),
+    # K10, the CostRegNets' U-Net blocks
+    "conv3d_block": ("patchmatchnet_torch/csrc/conv3d_block.cu", None),
 }
 # The gather microbenchmarks' kernels, one entry per TPU kernel of
 # tools/dev/bench_gather.py: id -> (kernel, section of the port's tool,
@@ -3325,14 +3356,19 @@ def read_training_run(out: str, steps: int):
 
 
 def casmvsnet_path(device, scratch, smi):
-    """Phase 19: returns ({"variance_volume", "prob_conv3d": summary entry},
-    {kernel: launches of the DepthEstimator run})."""
+    """Phase 19: returns ({"variance_volume", "prob_conv3d", "conv3d_block":
+    summary entry}, {kernel: launches of the DepthEstimator run})."""
     import numpy as np
     import torch
 
     from patchmatchnet_torch.config import Config
     from patchmatchnet_torch.data import BatchLoader, MVSDataset, make_synthetic_scene, read_pfm
-    from patchmatchnet_torch.dev.roofline import bound, kernel_work
+    from patchmatchnet_torch.dev.roofline import (
+        BF16_TENSOR_OPS_PER_S,
+        F32_OPS_PER_S,
+        bound,
+        kernel_work,
+    )
     from patchmatchnet_torch.infer import DepthEstimator, save_depth_maps
     from patchmatchnet_torch.ops import cuda_build
     from patchmatchnet_torch.ops.prob_conv3d import prob_conv3d, prob_conv3d_reference
@@ -3345,8 +3381,9 @@ def casmvsnet_path(device, scratch, smi):
     from patchmatchnet_torch.utils.trace import device_ms, fmt_ms, whole_trace
     from pmnbench.reference_casmvsnet import seeded_state
 
-    name, head = "variance_volume", "prob_conv3d"
-    summaries = new_summary([name, head])
+    name, head, block = "variance_volume", "prob_conv3d", "conv3d_block"
+    summaries = new_summary([name, head, block])
+    summaries[block]["ops_per_s"] = BF16_TENSOR_OPS_PER_S  # bf16 products: the tensor cores
     summary = summaries[name]
     stage_bound_ms = 0.0  # each stage bound by its own resource
     gen = torch.Generator(device=device).manual_seed(19)
@@ -3402,6 +3439,8 @@ def casmvsnet_path(device, scratch, smi):
           f"work), event {summary['ms']:.4f} ms, plain {summary['plain_ms']:.4f} ms", flush=True)
     head_bound_ms, head_library_ms, head_library_dev = head_stages(
         device, smi, summaries[head], prob_conv3d, prob_conv3d_reference)
+    block_bound_ms, block_library_ms, block_library_dev = block_stages(
+        device, smi, summaries[block])
 
     model = build_model(Config(architecture="casmvsnet"), inference=True)
     model.load_state_dict(seeded_state(CAS_SEED), strict=True)
@@ -3431,9 +3470,10 @@ def casmvsnet_path(device, scratch, smi):
     print(f"CasMVSNet bf16, {written} maps: launch counts {counts}; ms per map "
           + " ".join(f"{t:.2f}" for t in request_ms) + f"; peak memory {peak / 2**20:.1f} MiB",
           flush=True)
-    if written != CAS_VIEWS or counts != {name: 3 * written, head: 3 * written}:
-        fail(f"expected {CAS_VIEWS} maps and only K8 and K9, 3 each a map: {written} maps, "
-             f"{counts}")
+    if written != CAS_VIEWS or counts != {name: 3 * written, head: 3 * written,
+                                          block: 30 * written}:
+        fail(f"expected {CAS_VIEWS} maps and only K8 and K9, 3 each a map, and K10, 30 a map: "
+             f"{written} maps, {counts}")
     lo, hi = float(warm["depth_min"][0]), float(warm["depth_max"][0])
     for i in range(written):
         depth = read_pfm(os.path.join(out_dir, "depth_est", f"{i:08d}.pfm"))[..., 0]
@@ -3456,15 +3496,24 @@ def casmvsnet_path(device, scratch, smi):
         print(f"{head} on the main path: {len(k9) / CAS_TRACED:g} launches a map, device "
               f"{sum(k9) / CAS_TRACED / 1e3:.4f} ms a map, bound {head_bound_ms:.4f} ms; "
               f"implicit_convolveNd_sgemm {len(sgemm)} launches", flush=True)
-        if len(k8) != 3 * CAS_TRACED or len(k9) != 3 * CAS_TRACED or sgemm:
-            fail(f"traced {len(k8)} K8 and {len(k9)} K9 launches in {CAS_TRACED} requests, "
-                 f"expected 3 each, and {len(sgemm)} of cuDNN's generic kernel, expected 0")
+        k10 = [dur for _, kernel, _, dur in events if "conv3d_block_kernel" in kernel]
+        dgrad = [dur for _, kernel, _, dur in events if "dgrad" in kernel]
+        print(f"{block} on the main path: {len(k10) / CAS_TRACED:g} launches a map, device "
+              f"{sum(k10) / CAS_TRACED / 1e3:.4f} ms a map, bound {block_bound_ms:.4f} ms; "
+              f"dgrad kernels {len(dgrad)}", flush=True)
+        if (len(k8) != 3 * CAS_TRACED or len(k9) != 3 * CAS_TRACED or sgemm
+                or len(k10) != 30 * CAS_TRACED or dgrad):
+            fail(f"traced {len(k8)} K8, {len(k9)} K9 and {len(k10)} K10 launches in "
+                 f"{CAS_TRACED} requests, expected 3, 3 and 30 each, {len(sgemm)} of cuDNN's "
+                 f"generic kernel and {len(dgrad)} dgrad kernels, expected 0")
+    f32_model(device, dataset, warm, noise, lo, hi)
     lines = []
     for kernel, library_ms, library_dev in ((name, None, None),
-                                            (head, head_library_ms, head_library_dev)):
+                                            (head, head_library_ms, head_library_dev),
+                                            (block, block_library_ms, block_library_dev)):
         s = summaries[kernel]
         src, replaces = KERNEL_INFO[kernel]
-        kernel_bound_ms, kernel_by = bound(s["bytes"], s["ops"])
+        kernel_bound_ms, kernel_by = bound(s["bytes"], s["ops"], s.get("ops_per_s", F32_OPS_PER_S))
         lines.append({
             "name": kernel, "route": "cuda", "source": src, "replaces": replaces,
             "launches": counts[kernel], "max_abs_err": s["max_abs_err"], "ms": s["ms"],
@@ -3473,6 +3522,63 @@ def casmvsnet_path(device, scratch, smi):
             "timing": KERNEL_TIMING, "device_ms": s["device_ms"]})
     print(json.dumps({"kernels": lines}), flush=True)
     return summaries, counts
+
+
+def f32_model(device, dataset, warm, noise, lo, hi):
+    """Phase 19 (c): the f32 model (TF32 off) with the same seeded state
+    through DepthEstimator on CAS_F32_MAPS maps of the scene: K8 and K9 3
+    each and K10 30 a map and nothing else, maps finite inside the scene's
+    range; a trace of one request: 30 launches of K10's f32 kernel, no
+    `dgrad` kernel, and K10's device ms a map."""
+    import numpy as np
+    import torch
+
+    from patchmatchnet_torch.config import Config, ModelConfig
+    from patchmatchnet_torch.data import BatchLoader
+    from patchmatchnet_torch.infer import DepthEstimator
+    from patchmatchnet_torch.ops import cuda_build
+    from patchmatchnet_torch.train.driver import build_model
+    from patchmatchnet_torch.utils.trace import whole_trace
+    from pmnbench.reference_casmvsnet import seeded_state
+
+    cfg = Config(model=ModelConfig(precision="f32"), architecture="casmvsnet")
+    model = build_model(cfg, inference=True)
+    model.load_state_dict(seeded_state(CAS_SEED), strict=True)
+    estimator = DepthEstimator(model, device=device)
+    estimator(warm, noise)
+    torch.cuda.synchronize()
+    cuda_build.reset_launch_counts()
+    request_ms = []
+    for i, batch in enumerate(BatchLoader(dataset, batch_size=1)):
+        if i == CAS_F32_MAPS:
+            break
+        start = time.perf_counter()
+        depth, _ = estimator(batch, noise)  # numpy, on the host
+        request_ms.append((time.perf_counter() - start) * 1e3)
+        if not np.isfinite(depth).all() or depth.min() < lo - 1e-3 * (hi - lo) \
+                or depth.max() > hi + 1e-3 * (hi - lo):
+            fail(f"CasMVSNet f32 map {i}: depths {depth.min()}-{depth.max()} outside "
+                 f"[{lo}, {hi}] or not finite")
+    counts = cuda_build.launch_counts()
+    n = len(request_ms)
+    print(f"CasMVSNet f32, {n} maps: launch counts {counts}; ms per map "
+          + " ".join(f"{t:.2f}" for t in request_ms), flush=True)
+    if counts != {"variance_volume": 3 * n, "prob_conv3d": 3 * n, "conv3d_block": 30 * n}:
+        fail(f"CasMVSNet f32: expected K8 and K9 3 each a map and K10 30 a map, got {counts}")
+    events = whole_trace(lambda: estimator(warm, noise), 1)
+    if events is None:
+        print("conv3d_block f32 on the main path: device ms not measured (no whole trace)",
+              flush=True)
+        return
+    k10 = [dur for _, kernel, _, dur in events if "conv3d_block_f32_kernel" in kernel]
+    dgrad = [dur for _, kernel, _, dur in events if "dgrad" in kernel]
+    busy = sum(dur for _, _, _, dur in events)
+    print(f"conv3d_block f32 on the main path: {len(k10)} launches a map, device "
+          f"{sum(k10) / 1e3:.4f} ms a map of {busy / 1e3:.4f} ms of device work; dgrad "
+          f"kernels {len(dgrad)}", flush=True)
+    if len(k10) != 30 or dgrad:
+        fail(f"CasMVSNet f32 traced {len(k10)} K10 f32 launches and {len(dgrad)} dgrad "
+             f"kernels in one request, expected 30 and 0")
 
 
 def head_stages(device, smi, summary, prob_conv3d, prob_conv3d_reference):
@@ -3534,6 +3640,142 @@ def head_stages(device, smi, summary, prob_conv3d, prob_conv3d_reference):
     print(f"{name} per map (3 stages): device {fmt_ms(summary['device_ms'])} event "
           f"{summary['ms']:.4f} ms, bound {bound_ms:.4f} ms; cuDNN bf16 event {library_ms:.4f} "
           f"ms device {fmt_ms(library_dev)}", flush=True)
+    return bound_ms, library_ms, library_dev
+
+
+def block_stages(device, smi, summary):
+    """Phase 19 (a''): K10 at every U-Net block of the cell's three
+    CostRegNets, each block fed the one before it (random weights and
+    BatchNorm statistics, a random bf16 volume), against its arithmetic in
+    f32 (`conv3d_block_unrounded`), and each block's event and device ms beside
+    its bound and the bf16 plain version's (cuDNN's convolution and its glue,
+    the path K10 replaced), whose device time is split by kernel into the
+    convolution's and the glue's. Returns (bound ms, the plain version's event
+    ms, its device ms) a map."""
+    import torch
+
+    from patchmatchnet_torch.dev.roofline import (
+        BF16_TENSOR_OPS_PER_S,
+        F32_OPS_PER_S,
+        bound,
+        kernel_work,
+    )
+    from patchmatchnet_torch.models.casmvsnet import FEATURE_CHANNELS, CostRegNet
+    from patchmatchnet_torch.models.net import full_f32
+    from patchmatchnet_torch.ops.conv3d_block import (
+        conv3d_block,
+        conv3d_block_unrounded,
+        conv3d_block_reference,
+    )
+    from patchmatchnet_torch.utils.trace import (
+        CALLS,
+        busy_union_us,
+        device_ms,
+        fmt_ms,
+        trace_group,
+        whole_trace,
+    )
+
+    name, bf16 = "conv3d_block", torch.bfloat16
+    gen = torch.Generator(device=device).manual_seed(26)
+    bound_ms = library_ms = 0.0
+    library_dev = f32_dev = f32_plain = f32_bound = 0.0
+    print(f"K10 at the CostRegNets' blocks of {MAIN_W}x{MAIN_H}; {smi}", flush=True)
+    for stage, ((d, c, scale, _), channels) in enumerate(zip(CAS_STAGES, FEATURE_CHANNELS), 1):
+        assert c == channels
+        h, w = MAIN_H // scale, MAIN_W // scale
+        net = CostRegNet(c, dtype=bf16).eval().to(device)
+        with torch.no_grad():
+            for module in net.modules():
+                if hasattr(module, "bn"):
+                    cout = module.bn.weight.numel()
+                    fan_in = module.conv.weight[0].numel()
+                    if isinstance(module.conv, torch.nn.ConvTranspose3d):
+                        fan_in = module.conv.weight.numel() // (8 * cout)  # taps a parity
+                    module.conv.weight.normal_(0.0, (2.0 / fan_in) ** 0.5, generator=gen)
+                    module.bn.weight.uniform_(0.5, 1.5, generator=gen)
+                    module.bn.bias.normal_(0.0, 0.2, generator=gen)
+                    module.bn.running_mean.normal_(0.0, 0.2, generator=gen)
+                    module.bn.running_var.uniform_(0.5, 1.5, generator=gen)
+        acts = {"x": torch.randn((1, c, d, h, w), generator=gen, device=device).to(bf16)
+                .to(memory_format=torch.channels_last_3d)}
+        acts32 = {"x": acts["x"].float()}
+        for block, src, skip_of in COST_REG_BLOCKS:
+            module = getattr(net, block)
+            args = (acts[src], module.conv, module.bn, bf16,
+                    None if skip_of is None else acts[skip_of])
+            with torch.no_grad():
+                got = conv3d_block(*args)
+                want = conv3d_block_unrounded(args[0], module.conv, module.bn, args[4])
+                plain = conv3d_block_reference(*args)
+            err = (got.float() - want).abs()
+            max_abs = err.max().item()
+            gap = (got.float() - plain.float()).abs().max().item()
+            atol, rtol = BLOCK_TOL
+            outside = int((err > atol + rtol * want.abs()).sum())
+            summary["max_abs_err"] = max(summary["max_abs_err"], max_abs)
+            with torch.no_grad():
+                ms = time_ms(lambda: conv3d_block(*args))
+                dev_ms = device_ms(lambda: conv3d_block(*args))
+                plain_ms = time_ms(lambda: conv3d_block_reference(*args), reps=10, warmup=2)
+                events = whole_trace(lambda: conv3d_block_reference(*args), CALLS)
+            add_time(summary, name, args, got, 1, ms, plain_ms, dev_ms)
+            work_ms, by = bound(*kernel_work(name, args, got), BF16_TENSOR_OPS_PER_S)
+            bound_ms += work_ms
+            library_ms += plain_ms
+            split = "not measured"
+            if events is None:
+                library_dev = None
+            else:
+                plain_dev = busy_union_us((s, s + t) for _, _, s, t in events) / CALLS / 1e3
+                library_dev = None if library_dev is None else library_dev + plain_dev
+                conv = sum(t for _, k, _, t in events if trace_group(k) == "convolutions")
+                kinds = sorted({k.split("(")[0].split("<")[0][-40:] for _, k, _, _ in events})
+                split = (f"{plain_dev:.4f} (conv {conv / CALLS / 1e3:.4f}, glue "
+                         f"{plain_dev - conv / CALLS / 1e3:.4f}; {len(events) // CALLS} "
+                         f"kernels: {', '.join(kinds)})")
+            label = (f"stage {stage} {block} "
+                     f"{args[1].in_channels}->{args[1].out_channels} "
+                     f"{'x'.join(map(str, got.shape[2:]))}")
+            print(f"{name} {label}: max_abs {max_abs:.3e} outside {outside} | bf16 plain gap "
+                  f"{gap:.3e} | kernel {ms:.4f} ms device {fmt_ms(dev_ms)} bound {work_ms:.4f} "
+                  f"ms ({by}) | plain (cuDNN + glue) {plain_ms:.4f} ms device {split}",
+                  flush=True)
+            if outside:
+                fail(f"{name} {label}: {outside} values outside atol {atol} + rtol {rtol}")
+            acts[block] = got
+            del got, want, plain, err
+            # f32 payloads (the f32 model): K10 on the CUDA cores against the
+            # plain version in f32, TF32 off
+            args32 = (acts32[src], module.conv, module.bn, None,
+                      None if skip_of is None else acts32[skip_of])
+            with torch.no_grad(), full_f32():
+                got = conv3d_block(*args32)
+                plain = conv3d_block_reference(*args32)
+                dev32 = device_ms(lambda: conv3d_block(*args32))
+                plain32 = device_ms(lambda: conv3d_block_reference(*args32))
+            err = (got - plain).abs()
+            atol, rtol = BLOCK_F32_TOL
+            outside = int((err > atol + rtol * plain.abs()).sum())
+            f32_dev = None if None in (f32_dev, dev32) else f32_dev + dev32
+            f32_plain = None if None in (f32_plain, plain32) else f32_plain + plain32
+            work_ms, by = bound(*kernel_work(name, args32, got), F32_OPS_PER_S)
+            f32_bound += work_ms
+            print(f"{name} f32 {label}: max_abs {err.max().item():.3e} outside {outside} | "
+                  f"kernel device {fmt_ms(dev32)} bound {work_ms:.4f} ms ({by}) | plain (cuDNN "
+                  f"+ glue, f32) device {fmt_ms(plain32)}", flush=True)
+            if outside or got.dtype != torch.float32:
+                fail(f"{name} f32 {label}: {outside} values outside atol {atol} + rtol {rtol}, "
+                     f"dtype {got.dtype}")
+            acts32[block] = got
+            del got, plain, err
+        del acts, acts32, net
+        torch.cuda.empty_cache()
+    print(f"{name} per map (30 blocks): device {fmt_ms(summary['device_ms'])} event "
+          f"{summary['ms']:.4f} ms, bound {bound_ms:.4f} ms; plain (cuDNN + glue) event "
+          f"{library_ms:.4f} ms device {fmt_ms(library_dev)}", flush=True)
+    print(f"{name} f32 per map (30 blocks): device {fmt_ms(f32_dev)} bound {f32_bound:.4f} ms; "
+          f"plain (cuDNN + glue, f32) device {fmt_ms(f32_plain)}", flush=True)
     return bound_ms, library_ms, library_dev
 
 
@@ -3696,7 +3938,7 @@ def main() -> int:
     finally:
         shutil.rmtree(scratch, ignore_errors=True)
 
-    phase(f"CasMVSNet: K8 and K9 at the stage shapes of {MAIN_W}x{MAIN_H}, 1 + "
+    phase(f"CasMVSNet: K8, K9 and K10 at the stage shapes of {MAIN_W}x{MAIN_H}, 1 + "
           f"{CAS_VIEWS - 1} views, and the bf16 model through DepthEstimator")
     scratch = tempfile.mkdtemp(prefix="smoke_cas_", dir=os.path.join(REPO, "build"))
     try:
@@ -3706,12 +3948,12 @@ def main() -> int:
     summary.update(cas_summary)
     counts.update(cas_counts)
 
-    from patchmatchnet_torch.dev.roofline import bound
+    from patchmatchnet_torch.dev.roofline import F32_OPS_PER_S, bound
 
     kernels = []
     for name, (src, replaces) in KERNEL_INFO.items():
         s = summary[name]
-        bound_ms, bound_by = bound(s["bytes"], s["ops"])
+        bound_ms, bound_by = bound(s["bytes"], s["ops"], s.get("ops_per_s", F32_OPS_PER_S))
         kernels.append({
             "name": name, "route": "cuda", "source": src, "replaces": replaces,
             "launches": counts.get(name, 0), "max_abs_err": s["max_abs_err"],

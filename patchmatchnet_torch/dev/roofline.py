@@ -24,8 +24,9 @@ dtype (a convolution: its input, weights and output; a BatchNorm and ReLU
 after it: one pass over its output). Convolutions take the rate of the
 precision they run in: bf16 on the tensor cores, and f32 on the CUDA
 cores, since the f32 model turns TF32 off (`models.net.full_f32`). The
-hand kernels' rows are `kernel_work`'s (f32 on the CUDA cores), the
-definition `chip_smoke.py`'s kernel table uses. Each row belongs to one
+hand kernels' rows are `kernel_work`'s (f32 on the CUDA cores; K10's
+bf16 payloads on the tensor cores, the rate its callers pass to `bound`),
+the definition `chip_smoke.py`'s kernel table uses. Each row belongs to one
 group of a device trace (`utils.trace.trace_group`): "convolutions", the
 hand kernels K1-K6 by id, and "glue", the rest.
 
@@ -63,7 +64,8 @@ from patchmatchnet_torch.config import ModelConfig
 # The card's peak rates (NVIDIA H100 SXM data sheet, dense, at 700 W):
 # device memory 3.35 TB/s; f32 outside the tensor cores 67 TFLOP/s; bf16
 # on the tensor cores 989 TFLOP/s. Every hand kernel computes in f32 on the
-# CUDA cores.
+# CUDA cores but K10 on bf16 payloads, which runs its products on the tensor
+# cores.
 MEMORY_BYTES_PER_S = 3.35e12
 F32_OPS_PER_S = 67e12
 BF16_TENSOR_OPS_PER_S = 989e12
@@ -128,6 +130,13 @@ def kernel_work(name: str, args, out) -> tuple:
     if name == "prob_conv3d":  # x [B, 8, D, H, W], weight [1, 8, 3, 3, 3] (K9)
         x, weight = args
         return nbytes(x, weight, out), out.numel() * 2 * weight.numel()
+    if name == "conv3d_block":  # x, conv, bn, dtype, skip (K10)
+        x, conv, bn, _, skip = args
+        params = (conv.weight, bn.weight, bn.bias, bn.running_mean, bn.running_var)
+        # a transposed convolution's products are those of its input positions
+        positions = x if isinstance(conv, nn.ConvTranspose3d) else out
+        flops = 2 * conv.weight.numel() * (positions.numel() // positions.shape[1])
+        return nbytes(x, *params, out, *([] if skip is None else [skip])), flops
     raise KeyError(name)
 
 

@@ -12,8 +12,10 @@ U-Net (`share_cr=False`):
   (depth_max - depth_min) / 191, DTU's spacing of 192 planes;
 - K8 (`ops.variance_volume`) builds the variance cost volume over the
   views [B, D, h, w, C];
-- the CostRegNet turns it into one logit a plane, its head `prob` K9
-  (`ops.prob_conv3d`); softmax over the planes and depth = sum p d.
+- the CostRegNet turns it into one logit a plane: its ten blocks K10
+  (`ops.conv3d_block`, each convolution with its BatchNorm, ReLU and skip
+  in one pass), its head `prob` K9 (`ops.prob_conv3d`); softmax over the
+  planes and depth = sum p d.
 The confidence is stage 3's probability of the 4 planes about the regressed
 plane index.
 
@@ -23,7 +25,8 @@ so a released state dict loads (`load_state_dict` drops BatchNorm's
 `num_batches_tracked`, which the folded eval-mode BatchNorm does not use).
 
 `compute_dtype=torch.bfloat16` runs the features, the variance volume and
-the 3D convolutions in bf16 (cuDNN accumulates in f32); the hypotheses,
+the 3D convolutions in bf16 (cuDNN and K10 accumulate in f32; K10 applies
+the BatchNorm, ReLU and skip in f32 and rounds once); the hypotheses,
 softmax, regression and confidence stay f32, and so do K9's weights and
 logits on the card. The f32 mode turns TF32 off
 for its duration. Inference only: the model is built in eval mode and K8
@@ -50,6 +53,7 @@ from patchmatchnet_torch.models.layers import (
     conv2d,
 )
 from patchmatchnet_torch.models.net import full_f32
+from patchmatchnet_torch.ops import cuda_build
 from patchmatchnet_torch.ops import prob_conv3d as head_op
 from patchmatchnet_torch.ops import variance_volume as volume_op
 from patchmatchnet_torch.ops.resize import upsample_nearest_x2
@@ -124,9 +128,9 @@ class CostRegNet(nn.Module):
         conv2 = self.conv2(self.conv1(conv0))
         conv4 = self.conv4(self.conv3(conv2))
         x = self.conv6(self.conv5(conv4))
-        x = conv4 + self.conv7(x)
-        x = conv2 + self.conv9(x)
-        x = conv0 + self.conv11(x)
+        x = self.conv7(x, conv4)  # the published conv4 + conv7(x), in the block
+        x = self.conv9(x, conv2)
+        x = self.conv11(x, conv0)
         return head_op.prob_conv3d(x, self.prob.weight)
 
 
@@ -214,9 +218,11 @@ class CasMVSNet(nn.Module):
                     volume = volume_op.variance_volume(ref, src, mats, hyp)
                     counters.add(voxels=hyp.numel(), bytes=volume.nbytes)
                 with span(f"{name}.regularize") as counters:
+                    fused = cuda_build.launch_counts().get("conv3d_block", 0)
                     logits = self.cost_regularization[i](volume.permute(0, 4, 1, 2, 3))
+                    fused = cuda_build.launch_counts().get("conv3d_block", 0) - fused
                     counters.add(head_voxels=logits.numel() if head_op.uses_kernel(volume)
-                                 else 0)
+                                 else 0, fused_blocks=fused)
                 with span(f"{name}.regress"):
                     prob = torch.softmax(logits, dim=1)
                     depth = (prob * hyp).sum(1)

@@ -16,7 +16,11 @@ channel-first volumes [B, C, ...] by folding the trailing dims into 2-D.
 CasMVSNet's cost regularization has real 3D layers: `Conv3dBnReLU` and
 `Deconv3dBnReLU` (3x3x3, named as cascade-stereo's `Conv3d` and
 `Deconv3d` modules), which keep a `torch.channels_last_3d` input in that
-layout.
+layout and take the decoder's skip into the block. In eval mode a block
+is one call of `ops.conv3d_block` (K10 on the card, bf16 or f32 payloads:
+the convolution, the folded BatchNorm, the ReLU and the skip in one pass;
+its plain version on the CPU); train mode keeps the composition (the
+convolution, then BatchNorm with batch statistics, ReLU and the add).
 
 BatchNorm follows the module's mode: `model.eval()` folds the running
 statistics to one multiply-add; `model.train()` normalizes with the batch
@@ -40,6 +44,8 @@ import torch.distributed as dist
 import torch.distributed.nn.functional as dist_nn
 import torch.nn as nn
 import torch.nn.functional as F
+
+from patchmatchnet_torch.ops import conv3d_block as block_op
 
 
 def cast(x: torch.Tensor, dtype: Optional[torch.dtype]) -> torch.Tensor:
@@ -206,9 +212,18 @@ class Dense1(nn.Module):
         return channel_map(self.dense, x, self.dtype)
 
 
+def _block3d(block: nn.Module, x: torch.Tensor, skip: Optional[torch.Tensor]) -> torch.Tensor:
+    """`relu(bn(conv(x))) [+ skip]` of a 3D block: K10 (`ops.conv3d_block`)
+    in eval mode; the composition in train mode."""
+    if block.training:
+        return block_op.conv3d_block_reference(x, block.conv, block.bn, block.dtype, skip)
+    return block_op.conv3d_block(x, block.conv, block.bn, block.dtype, skip)
+
+
 class Conv3dBnReLU(nn.Module):
     """3x3x3 Conv3d (no bias) + BatchNorm + ReLU over [B, C, D, H, W]
-    (cascade-stereo: module.py `Conv3d`)."""
+    (cascade-stereo: module.py `Conv3d`), and the skip added after the
+    ReLU where one is given."""
 
     def __init__(self, in_channels: int, out_channels: int, stride: int = 1,
                  dtype: Optional[torch.dtype] = None):
@@ -217,14 +232,15 @@ class Conv3dBnReLU(nn.Module):
         self.conv = nn.Conv3d(in_channels, out_channels, 3, stride=stride, padding=1, bias=False)
         self.bn = BatchNorm(out_channels)
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return F.relu(self.bn(conv3d(self.conv, x, self.dtype)))
+    def forward(self, x: torch.Tensor, skip: Optional[torch.Tensor] = None) -> torch.Tensor:
+        return _block3d(self, x, skip)
 
 
 class Deconv3dBnReLU(nn.Module):
     """3x3x3 ConvTranspose3d of stride 2 (padding 1, output padding 1, no
     bias: each of D, H, W doubles) + BatchNorm + ReLU (cascade-stereo:
-    module.py `Deconv3d`)."""
+    module.py `Deconv3d`), and the U-Net's skip added after the ReLU (the
+    published `conv4 + self.conv7(x)`)."""
 
     def __init__(self, in_channels: int, out_channels: int,
                  dtype: Optional[torch.dtype] = None):
@@ -234,5 +250,5 @@ class Deconv3dBnReLU(nn.Module):
                                        output_padding=1, bias=False)
         self.bn = BatchNorm(out_channels)
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return F.relu(self.bn(conv3d(self.conv, x, self.dtype)))
+    def forward(self, x: torch.Tensor, skip: Optional[torch.Tensor] = None) -> torch.Tensor:
+        return _block3d(self, x, skip)

@@ -60,6 +60,9 @@ _SIGNATURES = {
     "pmn_variance_volume": [_P] * 5 + [_I] * 7 + [_P],
     # x, weight, out, B, D, H, W, bf16, stream
     "pmn_prob_conv3d": [_P] * 3 + [_I] * 5 + [_P],
+    # x, weight, gamma, beta, mean, var, skip, out, B, D, H, W, Do, Ho, Wo, cin, cout, mode,
+    # bf16, stream
+    "pmn_conv3d_block": [_P] * 8 + [_I] * 11 + [_P],
 }
 
 _lock = threading.Lock()

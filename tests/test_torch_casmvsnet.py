@@ -9,15 +9,17 @@ against the plain reference `pmnbench/reference_casmvsnet.py`, on the CPU at
   samples off the source image;
 - K9's plain version (the head) against `nn.Conv3d`, and its device
   symbol in the benchmark's `convolutions` group;
-- the 3D blocks against `nn.Conv3d`, `nn.ConvTranspose3d`, `nn.BatchNorm3d`;
+- the 3D blocks against `nn.Conv3d`, `nn.ConvTranspose3d`, `nn.BatchNorm3d`
+  (K10, `ops.conv3d_block`, in `tests/test_torch_conv3d_block.py`);
 - `DepthEstimator`, `build_model`, `load_weights` (both architectures), the
   `casmvsnet` command, the spans, the seeded state's sharpness and the
   shape check.
 
 Marked `cuda` (skipped without a card): K8's kernel against its plain
 version; K9's kernel against `F.conv3d` in f32 at the cell's stage shapes
-and two ragged ones; the bf16 model on the card, its launches and its
-`head_voxels`. On a machine with a GPU:
+and two ragged ones; the bf16 and f32 models on the card, their launches
+(K10 30 a map), their `head_voxels` and `fused_blocks`. On a machine with a
+GPU:
     python -m pytest tests/test_torch_casmvsnet.py -q -m cuda --noconftest
 This file imports no JAX.
 """
@@ -350,8 +352,10 @@ def test_spans_and_counters(state, inputs):
         voxels = d * (H // scale) * (W // scale)
         numbers = spans[f"pmn.cas.stage{s}.volume"].numbers
         assert numbers == {"voxels": voxels, "bytes": voxels * c * 2}
-        # the CPU runs the head's plain version: no voxel of the kernel
-        assert spans[f"pmn.cas.stage{s}.regularize"].numbers == {"head_voxels": 0}
+        # the CPU runs the head's and the blocks' plain versions: no voxel
+        # of K9, no block through K10
+        assert spans[f"pmn.cas.stage{s}.regularize"].numbers == {"head_voxels": 0,
+                                                                 "fused_blocks": 0}
         assert stages[s]["prob"].shape == (1, d, H // scale, W // scale)
 
 
@@ -375,17 +379,20 @@ def test_head_plain_version_is_the_published_conv(dtype):
 
 def test_cost_regnet_ends_in_the_head(state):
     """The CostRegNet's logits are K9 (its plain version here) over what
-    the last block and its skip leave."""
+    the last block leaves, its skip (conv0's output) added in the block."""
     net = CostRegNet(8).eval()
     net.load_state_dict({k[len("cost_regularization.2."):]: v for k, v in state.items()
                          if k.startswith("cost_regularization.2.")})
     x = torch.randn((1, 8, 8, 16, 16)).to(memory_format=torch.channels_last_3d)
     seen = {}
-    net.conv11.register_forward_hook(lambda m, i, o: seen.setdefault("conv11", o))
+    net.conv11.register_forward_hook(lambda m, i, o: seen.setdefault("conv11", (i, o)) and None)
     net.conv0.register_forward_hook(lambda m, i, o: seen.setdefault("conv0", o))
     with torch.no_grad():
         logits = net(x)
-        head_in = seen["conv0"] + seen["conv11"]
+        (block_in, skip), head_in = seen["conv11"]
+        assert skip is seen["conv0"]
+        torch.testing.assert_close(head_in, seen["conv0"] + net.conv11(block_in),
+                                   atol=0, rtol=0)
         torch.testing.assert_close(logits, prob_conv3d_reference(head_in, net.prob.weight),
                                    atol=0, rtol=0)
 
@@ -497,8 +504,9 @@ def test_head_kernel_refuses_other_layouts(device):
 
 @pytest.mark.cuda
 def test_model_on_the_card_runs_k8_and_k9(device, state, inputs, ref_out):
-    """The bf16 model on the card: K8 and K9 once a stage and each stage's
-    `head_voxels` D h w; its depth within bf16 of the f32 reference, as on
+    """The bf16 model on the card: K8 and K9 once a stage, K10 for each of
+    a stage's 10 U-Net blocks, each stage's `head_voxels` D h w and
+    `fused_blocks` 10; its depth within bf16 of the f32 reference, as on
     the CPU."""
     model = _model(state, torch.bfloat16).to(device)
     cuda_build.reset_launch_counts()
@@ -512,11 +520,42 @@ def test_model_on_the_card_runs_k8_and_k9(device, state, inputs, ref_out):
     finally:
         trace_spans(previous)
         reset_spans()
-    assert cuda_build.launch_counts() == {"variance_volume": 3, "prob_conv3d": 3}
+    assert cuda_build.launch_counts() == {"variance_volume": 3, "prob_conv3d": 3,
+                                          "conv3d_block": 30}
     for s, d in zip((1, 2, 3), (48, 32, 8)):
         scale = (4, 2, 1)[s - 1]
-        head = spans[f"pmn.cas.stage{s}.regularize"].numbers["head_voxels"]
-        assert head == d * (H // scale) * (W // scale)
+        numbers = spans[f"pmn.cas.stage{s}.regularize"].numbers
+        assert numbers["head_voxels"] == d * (H // scale) * (W // scale)
+        assert numbers["fused_blocks"] == 10
     gap = (depth.cpu() - ref_out[0]).abs().flatten() / RANGE
     assert float(gap.median()) < BF16_MEDIAN
     assert float(torch.quantile(gap, 0.9)) < BF16_P90
+
+
+@pytest.mark.cuda
+def test_f32_model_on_the_card_runs_k10_for_every_block(device, state, inputs, ref_out):
+    """The f32 model (TF32 off) on the card: K8 and K9 once a stage and K10,
+    on its f32 payloads, for each of a stage's 10 U-Net blocks; its depth
+    within the CPU's f32 tolerances of the f32 reference."""
+    model = _model(state).to(device)
+    cuda_build.reset_launch_counts()
+    previous = trace_spans(True)
+    reset_spans()
+    try:
+        with torch.no_grad():
+            depth, _, stages = model(*(t.to(device) for t in inputs))
+        torch.cuda.synchronize()
+        spans = span_summary()
+    finally:
+        trace_spans(previous)
+        reset_spans()
+    assert cuda_build.launch_counts() == {"variance_volume": 3, "prob_conv3d": 3,
+                                          "conv3d_block": 30}
+    for s in (1, 2, 3):
+        assert spans[f"pmn.cas.stage{s}.regularize"].numbers["fused_blocks"] == 10
+    ref_depth, _, ref_stages = ref_out
+    assert depth.dtype == torch.float32
+    torch.testing.assert_close(depth.cpu(), ref_depth, atol=0.02, rtol=0)  # mm, of 510
+    for s in (1, 2, 3):
+        torch.testing.assert_close(stages[s]["prob"].cpu(), ref_stages[s]["prob"], atol=2e-3,
+                                   rtol=0)
